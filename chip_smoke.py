@@ -9,22 +9,34 @@ package) and exits nonzero on any failure:
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
    builds every CUDA kernel of `spim_registration_tpu_torch/csrc/` with
    nvcc, one process per source, all at once;
-2. the main path: multi-view Richardson-Lucy at the bench configuration
-   (4 views x 256^3, the committed fixture PSFs, efficient-Bayesian,
-   sequential, 20 iterations) with the lowrank backend on the kernels and
-   with the exact FFT backend; kernel launch counts over one lowrank run,
-   throughput, the lowrank-vs-fft accuracy gate after 5 iterations and
-   each engine's self-repeat; then a `torch.profiler` trace of one
-   lowrank run: device time by kernel and the device's idle share;
+2. the deconvolution path: multi-view Richardson-Lucy at the bench
+   configuration (4 views x 256^3, the committed fixture PSFs,
+   efficient-Bayesian, sequential, 20 iterations) with the lowrank
+   backend on the kernels and with the exact FFT backend; kernel launch
+   counts over one lowrank run, throughput, the lowrank-vs-fft accuracy
+   gate after 5 iterations and each engine's self-repeat; then a
+   `torch.profiler` trace of one lowrank run: device time by kernel and
+   the device's idle share;
 3. kernels vs their plain PyTorch versions at the main path's shapes
    (256^3, the staged bf16 matrices of the fixture PSFs at their real
    ranks): the z pass banded, dense and at a z-slab offset, and the fused
    y/x rows pass; error, median time (CUDA events), plain time, one-call
    library time and the least time the card could take (bound);
-4. the registered reconstruction through the public entry points
-   (simulated 4-view 256^3 scene -> extract_psf -> prepare_views ->
-   fuse_views -> deconvolve) with the sharpening check;
-5. the card against the port's plain CPU path on a small input.
+4. the detection path at the bench configuration (8 views x 256^3,
+   `detect_beads_batch` and `detect_beads`): segtopk launches per batch,
+   voxels/s, peaks per view; then segtopk against its plain version,
+   exactly, on the detection volume's real score field and on a dense
+   adversarial field, with its times and bound;
+5. the matching path at the bench configuration (8 views x 128^3, 28
+   pairs, RGLDM, RANSAC, the global affine solve on the device assembly):
+   pairs/s, valid pairs, residuals, and the same points through the
+   port's CPU path giving identical inlier sets;
+6. the reconstruction through the public entry points (simulated 4-view
+   256^3 scene -> register_views -> extract_psf -> prepare_views ->
+   fuse_views -> deconvolve) with the transform-error and sharpening
+   checks;
+7. the card against the port's plain CPU path on small inputs
+   (Richardson-Lucy, detection).
 
 Each phase prints one JSON line; then a `kernels` JSON line, the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`.
@@ -47,7 +59,10 @@ ROOT = Path(__file__).resolve().parent
 # bf16 tensor-core rate; a card below its 700 W limit runs slower
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
+# H100 SXM float32 rate outside the tensor cores (compares, adds)
+PEAK_F32_OPS_PER_S = 67e12
 N_VIEWS, N_ITER, SHAPE = 4, 20, (256, 256, 256)
+DETECT_VIEWS, SEG, ROUNDS = 8, 512, 4
 GATE_TOL = 5e-4
 KERNEL_TOL_NRMSE = 1e-3
 KERNEL_TOL_MAX = 2.0 ** -7       # x max|out|: one bf16 ULP of the scale
@@ -106,6 +121,24 @@ def kernel_error(got, want) -> dict:
                      and out["max_abs_err"]
                      <= KERNEL_TOL_MAX * out["max_abs_out"])
     return out
+
+
+def _counters():
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.kernels import segtopk as st
+
+    return {"zpass": lc.zpass, "sl_rows": lc.sl_rows,
+            "segtopk": st.segment_topk}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0 (just before a path is driven)."""
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def phase_card() -> str:
@@ -277,7 +310,6 @@ def phase_rl(psfs, factors) -> tuple:
     """The main path at the bench configuration. Returns (kernel launch
     counts of one 20-iteration lowrank run, the staged lowrank runner)."""
     from spim_registration_tpu_torch.deconv import DeconvolutionRunner
-    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 
     (prep, t_prep) = sync_wall(lambda: make_rl_prep(SHAPE, psfs, factors))
     info = {"phase": "rl", "shape": list(SHAPE), "views": N_VIEWS,
@@ -302,13 +334,11 @@ def phase_rl(psfs, factors) -> tuple:
         walls = []
         for rep in range(5):
             if backend == "lowrank" and rep == 0:
-                # the main path's counted run: counts from 0 around it
-                lc.zpass.launches = 0
-                lc.sl_rows.launches = 0
+                # the path's counted run: counts from 0 around it
+                reset_launches()
             out, wall = sync_wall(runner.run)
             if backend == "lowrank" and rep == 0:
-                counts = {"zpass": lc.zpass.launches,
-                          "sl_rows": lc.sl_rows.launches}
+                counts = read_launches()
             walls.append(wall)
         med = float(np.median(walls))
         info[f"{backend}_walls_s"] = walls
@@ -329,41 +359,252 @@ def phase_rl(psfs, factors) -> tuple:
     emit(info)
     if not gate < GATE_TOL:
         raise AssertionError(f"lowrank vs fft gate {gate} >= {GATE_TOL}")
-    if counts != {"zpass": expected, "sl_rows": expected}:
+    if counts != {"zpass": expected, "sl_rows": expected, "segtopk": 0}:
         raise AssertionError(f"kernel launches {counts}, expected "
-                             f"{expected} each")
+                             f"{expected} of zpass and sl_rows")
     return counts, lowrank
 
 
-def phase_profile(runner) -> None:
-    """Device time by kernel over one main-path run (torch.profiler)."""
+def device_profile(fn, top: int = 14) -> dict:
+    """Device time by kernel and the device's idle share over one call of
+    `fn` (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    runner.run(num_iterations=2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_wall(runner.run)
+        _, wall = sync_wall(fn)
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
-    emit({"phase": "profile", "wall_s": wall, "device_busy_s": busy_us / 1e6,
-          "idle_share": 1.0 - busy_us / 1e6 / wall,
-          "top": [{"name": k[:90], "device_ms": us / 1e3, "count": n,
-                   "share": us / max(busy_us, 1e-9)}
-                  for k, us, n in rows[:14]]})
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time")
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "top": [{"name": k[:90], "device_ms": us / 1e3, "count": n,
+                     "share": us / busy_us} for k, us, n in rows[:top]]}
+
+
+def phase_profile(runner) -> None:
+    """Device time by kernel over one deconvolution run."""
+    runner.run(num_iterations=2)
+    emit({"phase": "profile", **device_profile(runner.run)})
+
+
+def detection_volume() -> np.ndarray:
+    """bench.py's detection volume: 400 beads (sigma 1.5) in 256^3 plus
+    noise 0.005, seed 5."""
+    from spim_registration_tpu_torch.utils.simulation import render_beads
+
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(8, SHAPE[0] - 8, size=(400, 3))
+    return render_beads(pts, SHAPE, sigma=1.5) \
+        + rng.normal(0, 0.005, SHAPE).astype(np.float32)
+
+
+def phase_detect(vol: np.ndarray) -> int:
+    """The detection path at bench.py's configuration: 8 views of the
+    detection volume with per-view noise 1e-4 (seed 11),
+    DoGParameters(sigma=1.8, threshold=0.004), through detect_beads_batch
+    and detect_beads. Returns segtopk's launches in one batch call."""
+    from spim_registration_tpu_torch.detect import (
+        DoGParameters,
+        detect_beads,
+        detect_beads_batch,
+    )
+
+    rng = np.random.default_rng(11)
+    stack = np.stack([vol + rng.normal(0, 1e-4, vol.shape).astype(np.float32)
+                      for _ in range(DETECT_VIEWS)])
+    vols = torch.from_numpy(stack).cuda()
+    del stack
+    params = DoGParameters(sigma=1.8, threshold=0.004)
+    _, first_s = sync_wall(lambda: detect_beads_batch(vols, params))
+    reset_launches()
+    res, wall = sync_wall(lambda: detect_beads_batch(vols, params))
+    counts = read_launches()
+    walls = [wall] + [sync_wall(lambda: detect_beads_batch(vols, params))[1]
+                      for _ in range(4)]
+    _, single_first_s = sync_wall(lambda: detect_beads(vols[0], params))
+    single = [sync_wall(lambda: detect_beads(vols[0], params))[1]
+              for _ in range(5)]
+    med, smed = float(np.median(walls)), float(np.median(single))
+    prof = device_profile(lambda: detect_beads_batch(vols, params))
+    n_vox = float(np.prod(SHAPE))
+    peaks = [len(p) for p, _ in res]
+    inside = all(bool(np.all((p >= 0) & (p <= np.array(SHAPE) - 1)))
+                 for p, _ in res)
+    emit({"phase": "detect", "views": DETECT_VIEWS, "shape": list(SHAPE),
+          "params": {"sigma": 1.8, "threshold": 0.004},
+          "peaks_per_view": peaks, "launches": counts,
+          "batch_first_s": first_s, "batch_walls_s": walls,
+          "batch_median_s": med,
+          "batch_voxels_per_s": DETECT_VIEWS * n_vox / med,
+          "single_first_s": single_first_s, "single_walls_s": single,
+          "single_median_s": smed, "single_voxels_per_s": n_vox / smed,
+          "profile": prof})
+    if counts["segtopk"] != DETECT_VIEWS:
+        raise AssertionError(f"segtopk launches {counts}, expected "
+                             f"{DETECT_VIEWS} per batch call")
+    if not inside or min(peaks) < 380 or max(peaks) > 400:
+        raise AssertionError(f"detection: {peaks} peaks per view (400 "
+                             f"beads; the reference finds 398)")
+    return counts["segtopk"]
+
+
+def phase_segtopk(vol: np.ndarray) -> dict:
+    """segtopk against its plain version at the main path's shape (256^3
+    = 32768 segments of 512, 4 rounds), exactly, on the detection
+    volume's real score field and on a dense adversarial field (few
+    distinct values, so ties in every segment; all--inf segments);
+    times and bound."""
+    from spim_registration_tpu_torch.ops.extrema import candidate_score
+    from spim_registration_tpu_torch.ops.gaussian import (
+        difference_of_gaussian,
+        dog_sigmas,
+    )
+    from spim_registration_tpu_torch.ops.kernels import segtopk as st
+
+    v = torch.from_numpy(vol).cuda()
+    v = (v - v.min()) / torch.clamp(v.max() - v.min(), min=1e-12)
+    s1, s2, norm = dog_sigmas(1.8, 0.004)
+    score = candidate_score(difference_of_gaussian(v, s1, s2)
+                            * np.float32(norm), 0.004)
+    S = score.numel() // SEG
+    real = score.view(S, SEG)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dense = torch.randint(0, 8, (S, SEG), generator=g, device="cuda"
+                          ).float() / 8
+    dense[torch.rand((S, SEG), generator=g, device="cuda") < 0.3] = -np.inf
+    dense[3::10] = -np.inf
+    fields = {"real": real, "dense": dense}
+    cases = {}
+    for name, tiles in fields.items():
+        got = st.segment_topk(tiles, ROUNDS)
+        want = st.segment_topk_reference(tiles, ROUNDS)
+        torch.cuda.synchronize()
+        cases[name] = {
+            "equal": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
+            "max_abs_err": float((got[0] - want[0]).abs().nan_to_num(
+                0.0).max()),
+            "finite_entries": int(torch.isfinite(tiles).sum()),
+            "overflowing_segments": int((want[2] > ROUNDS).sum())}
+    times = {"ms": cuda_ms(lambda: st.segment_topk(real, ROUNDS), 50),
+             "plain_ms": cuda_ms(
+                 lambda: st.segment_topk_reference(real, ROUNDS), 5),
+             # values and indices only: no counts and no first-index rule
+             "library_ms": cuda_ms(lambda: torch.topk(real, ROUNDS, dim=1),
+                                   20),
+             "dense_ms": cuda_ms(lambda: st.segment_topk(dense, ROUNDS), 50)}
+    n_bytes = S * SEG * 4 + S * ROUNDS * 8 + S * 4
+    n_ops = float(S * SEG * (ROUNDS + 1))   # compares: count + each round
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    emit({"phase": "kernels", "kernel": "segtopk", "segments": S,
+          "seg": SEG, "rounds": ROUNDS, "cases": cases, "times_ms": times,
+          "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
+          "library": "torch.topk(tiles, 4, dim=1): no counts, no "
+                     "first-index tie rule"})
+    bad = [k for k, c in cases.items() if not all(c["equal"])]
+    if bad:
+        raise AssertionError(f"segtopk differs from its plain version on "
+                             f"{bad}")
+    return {"name": "segtopk", "route": "cuda",
+            "source": "spim_registration_tpu_torch/csrc/segtopk.cu",
+            "replaces": "spim_registration_tpu/ops/pallas/segtopk.py:31 "
+                        "(_seg_topk_kernel)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": times["library_ms"]}
+
+
+def phase_match() -> None:
+    """The matching path at bench.py's configuration: 8 views x 128^3
+    (seed 7, 250 beads, full circle), detected on the card; all 28 pairs
+    through match_pairs_batched (RGLDM, ratio 3, 256 points); the global
+    affine solve with 2 trim rounds on the device assembly; the same
+    points through the port's CPU path."""
+    from spim_registration_tpu_torch.detect import (
+        DoGParameters,
+        detect_beads_batch,
+    )
+    from spim_registration_tpu_torch.match import (
+        PairwiseParameters,
+        match_pairs_batched,
+    )
+    from spim_registration_tpu_torch.solve import (
+        GlobalOptParameters,
+        PairMatches,
+        solve_global,
+    )
+    from spim_registration_tpu_torch.utils.simulation import (
+        make_multiview_scene,
+    )
+
+    scene = make_multiview_scene(
+        np.random.default_rng(7), n_views=8, shape=(128, 128, 128),
+        n_beads=250, full_circle=True, max_perturb_deg=2.0, max_shift=3.0,
+        noise=5e-4, bead_sigma=1.0, psf_sigmas=[(3.0, 1.0, 1.0)] * 8)
+    points = [p for p, _ in detect_beads_batch(
+        np.stack(scene.volumes), DoGParameters(sigma=1.8, threshold=0.006))]
+    V = len(points)
+    pairs = [(i, j) for i in range(V) for j in range(i + 1, V)]
+    params = PairwiseParameters(method="rgldm", ratio_of_distance=3.0,
+                                max_points=256)
+    _, first_s = sync_wall(lambda: match_pairs_batched(points, pairs,
+                                                       params))
+    walls = []
+    for _ in range(5):
+        results, w = sync_wall(lambda: match_pairs_batched(points, pairs,
+                                                           params))
+        walls.append(w)
+    wall = float(np.median(walls))
+    prof = device_profile(lambda: match_pairs_batched(points, pairs, params))
+    matches = [PairMatches(view_i=i, view_j=j, p=points[i][r.inliers[:, 0]],
+                           q=points[j][r.inliers[:, 1]])
+               for (i, j), r in results.items()
+               if r.valid and len(r.inliers)]
+    n_corr = sum(len(m.p) for m in matches)
+    gres, solve_s = sync_wall(lambda: solve_global(
+        matches, fixed_views=[0], params=GlobalOptParameters(
+            model="affine", outlier_trim_rounds=2)))
+    cpu, cpu_s = sync_wall(lambda: match_pairs_batched(
+        points, pairs, params, device="cpu"))
+    differ = [f"{i}-{j}" for (i, j) in pairs
+              if cpu[(i, j)].valid != results[(i, j)].valid
+              or not np.array_equal(cpu[(i, j)].inliers,
+                                    results[(i, j)].inliers)]
+    n_valid = sum(r.valid for r in results.values())
+    worst = sorted(gres.per_pair_error.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "match", "views": V, "points_per_view":
+          [len(p) for p in points], "pairs": len(pairs),
+          "valid_pairs": n_valid, "first_s": first_s, "walls_s": walls,
+          "median_s": wall, "pairs_per_s": len(pairs) / wall,
+          "correspondences": n_corr, "device_assembly": n_corr >= 2000,
+          "solve_s": solve_s, "residual_mean_px": gres.mean_error,
+          "residual_max_px": gres.max_error, "trimmed": gres.trimmed,
+          "worst_pairs_px": [[f"{i}-{j}", e] for (i, j), e in worst],
+          "cpu_s": cpu_s, "pairs_differing_from_cpu": differ,
+          "profile": prof})
+    if n_valid != len(pairs):
+        raise AssertionError(f"{n_valid}/{len(pairs)} pairs valid")
+    if differ:
+        raise AssertionError(f"card and CPU differ on pairs {differ}")
+    if not (np.isfinite(gres.max_error) and gres.max_error < 1.0):
+        raise AssertionError(f"global solve residual {gres.max_error} px")
 
 
 def phase_pipeline() -> None:
-    """Registered views -> PSFs -> prep -> fusion -> deconvolution through
-    the public entry points (ground-truth registration: the registration
-    stages are not ported yet)."""
+    """Simulated views -> register_views -> PSFs -> prep -> fusion ->
+    deconvolution through the public entry points, on the registered
+    models (the demo's flow, examples/full_pipeline_demo.py)."""
     from spim_registration_tpu_torch.core.dataset import BoundingBox
     from spim_registration_tpu_torch.deconv import (
         DeconvolutionParameters,
@@ -372,8 +613,13 @@ def phase_pipeline() -> None:
         extract_psf,
         prepare_views_for_deconvolution,
     )
+    from spim_registration_tpu_torch.detect import DoGParameters
     from spim_registration_tpu_torch.fuse import FusionParameters, fuse_views
-    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.match import PairwiseParameters
+    from spim_registration_tpu_torch.pipeline import (
+        RegistrationConfig,
+        register_views,
+    )
     from spim_registration_tpu_torch.utils.simulation import (
         make_multiview_scene,
     )
@@ -389,11 +635,25 @@ def phase_pipeline() -> None:
     lo, hi = (24, 24, 24), (232, 232, 232)       # 208^3: ragged tiles
     bbox = BoundingBox("b", lo, hi)
 
+    cfg = RegistrationConfig(
+        detection=DoGParameters(sigma=2.0, threshold=0.008),
+        pairwise=PairwiseParameters(model="affine", max_points=512))
+    reset_launches()
+    reg, walls["register_views_s"] = sync_wall(
+        lambda: register_views(scene.volumes, cfg))
+    reg_launches = read_launches()
+    errs = []
+    for v in range(N_VIEWS):
+        p = scene.view_points[v]
+        e = p @ reg.models[v][:, :3].T + reg.models[v][:, 3]
+        t = p @ scene.models[v][:, :3].T + scene.models[v][:, 3]
+        errs.append(float(np.mean(np.linalg.norm(e - t, axis=1))))
+
     def psfs_and_factors():
         psfs, factors, used = [], [], []
         for v in range(N_VIEWS):
-            psf, n = extract_psf(scene.volumes[v], scene.models[v],
-                                 scene.view_points[v], psf_shape=(13, 13, 13))
+            psf, n = extract_psf(scene.volumes[v], reg.models[v],
+                                 reg.points[v], psf_shape=(13, 13, 13))
             psf, fac = condition_psf(psf, denoise_rank=8,
                                      return_factors=True)
             psfs.append(psf)
@@ -405,17 +665,16 @@ def phase_pipeline() -> None:
         psfs_and_factors)
     prep, walls["prepare_views_s"] = sync_wall(
         lambda: prepare_views_for_deconvolution(
-            scene.volumes, scene.models, psfs, bbox))
+            scene.volumes, reg.models, psfs, bbox))
     prep.psf_factors = factors
     fused, walls["fuse_views_s"] = sync_wall(
-        lambda: fuse_views(scene.volumes, scene.models, bbox,
+        lambda: fuse_views(scene.volumes, reg.models, bbox,
                            FusionParameters()))
-    lc.zpass.launches = 0
-    lc.sl_rows.launches = 0
+    reset_launches()
     deconv, walls["deconvolve_s"] = sync_wall(
         lambda: deconvolve(prep, DeconvolutionParameters(
             num_iterations=10, conv_backend="lowrank")))
-    launches = {"zpass": lc.zpass.launches, "sl_rows": lc.sl_rows.launches}
+    launches = read_launches()
     shape = tuple(h - l for l, h in zip(lo, hi))
     for name, vol in (("fused", fused), ("deconv", deconv)):
         if vol.shape != shape or not np.all(np.isfinite(vol)):
@@ -424,11 +683,28 @@ def phase_pipeline() -> None:
     idx = idx[np.all((idx >= 0) & (idx < np.array(shape)), axis=1)]
     pk_f = float(np.mean(fused[tuple(idx.T)]))
     pk_d = float(np.mean(deconv[tuple(idx.T)]))
+    n_valid = sum(r.valid for r in reg.pair_results.values())
     emit({"phase": "pipeline", "views": N_VIEWS, "scene": list(SHAPE),
-          "bbox": [list(lo), list(hi)], "beads_used_for_psf": used,
-          "walls": walls, "launches": launches,
+          "bbox": [list(lo), list(hi)],
+          "points_per_view": [len(p) for p in reg.points],
+          "valid_pairs": f"{n_valid}/{len(reg.pair_results)}",
+          "inliers_per_pair": {f"{i}-{j}": r.num_inliers
+                               for (i, j), r in reg.pair_results.items()},
+          "residual_mean_px": reg.mean_error,
+          "residual_max_px": reg.max_error,
+          "transform_error_px": errs, "transform_error_tol": 0.5,
+          "registration_timings_s": reg.timings,
+          "register_launches": reg_launches,
+          "beads_used_for_psf": used,
+          "walls": walls, "deconvolve_launches": launches,
           "peak_fused": pk_f, "peak_deconv": pk_d,
           "sharpening": pk_d / max(pk_f, 1e-12)})
+    if not max(errs) < 0.5:
+        raise AssertionError(f"registration error {errs} px >= 0.5")
+    if reg_launches["segtopk"] != N_VIEWS:
+        raise AssertionError(f"register_views launched segtopk "
+                             f"{reg_launches['segtopk']} times, expected "
+                             f"{N_VIEWS}")
     if not pk_d > 1.5 * pk_f:
         raise AssertionError(f"deconvolution did not sharpen: {pk_d} vs "
                              f"{pk_f}")
@@ -438,10 +714,13 @@ def phase_pipeline() -> None:
 
 
 def phase_small_vs_cpu() -> None:
-    """The card's lowrank RL (bf16 matrices through the kernels) against
-    the port's plain CPU path on the same small input. Both round the
-    same f32 sums to bf16 once; a flipped rounding compounds over
-    iterations, hence the 2e-4 tolerance of the CPU parity tests."""
+    """The card against the port's plain CPU path on small inputs:
+    lowrank RL (bf16 matrices through the kernels; both round the same f32
+    sums to bf16 once, a flipped rounding compounds over iterations, hence
+    the 2e-4 tolerance of the CPU parity tests), and detection on a 96^3
+    bead volume (identical peak sets, sub-pixel positions within 1e-3
+    px)."""
+    from spim_registration_tpu_torch.detect import DoGParameters, detect_beads
     from spim_registration_tpu_torch.convert import views_from_numpy
     from spim_registration_tpu_torch.deconv import (
         DeconvolutionParameters,
@@ -466,10 +745,31 @@ def phase_small_vs_cpu() -> None:
         out[dev] = DeconvolutionRunner(prep, params, device=dev,
                                        ).run().cpu().numpy()
     nr = nrmse(out["cpu"], out["cuda"])
+
+    dshape = (96, 96, 96)
+    vol = render_beads(rng.uniform(6, 90, size=(80, 3)), dshape, sigma=1.5) \
+        + rng.normal(0, 0.005, dshape).astype(np.float32)
+    # max_peaks <= 4 x the 1728 segments, so the selection runs segtopk
+    dparams = DoGParameters(sigma=1.8, threshold=0.004, max_peaks=2048)
+    reset_launches()
+    (pc, _), (pg, _) = (detect_beads(vol, dparams, device=d)
+                        for d in ("cpu", "cuda"))
+    det_launches = read_launches()["segtopk"]
+    same = pc.shape == pg.shape and np.array_equal(np.round(pc),
+                                                   np.round(pg))
+    dpos = float(np.abs(pc - pg).max()) if same else None
     emit({"phase": "small_vs_cpu", "shape": list(shape), "nrmse": nr,
-          "tol": 2e-4})
+          "tol": 2e-4, "detect_shape": list(dshape),
+          "detect_peaks": [len(pc), len(pg)], "detect_same_peaks": same,
+          "detect_max_pos_diff_px": dpos, "detect_pos_tol_px": 1e-3,
+          "detect_segtopk_launches": det_launches})
     if not nr < 2e-4:
         raise AssertionError(f"card vs CPU nrmse {nr}")
+    if not same or dpos > 1e-3 or det_launches != 1:
+        raise AssertionError(f"card vs CPU detection: {len(pg)} vs "
+                             f"{len(pc)} peaks, same sites {same}, max "
+                             f"position difference {dpos}, segtopk "
+                             f"launches {det_launches}")
 
 
 def main() -> int:
@@ -494,11 +794,20 @@ def main() -> int:
     kernels = phase_kernels(runner)
     del runner
     torch.cuda.empty_cache()
+    vol = detection_volume()
+    counts["segtopk"] = phase_detect(vol)
+    torch.cuda.empty_cache()
+    kernels["segtopk"] = phase_segtopk(vol)
+    del vol
+    torch.cuda.empty_cache()
+    phase_match()
+    torch.cuda.empty_cache()
     phase_pipeline()
     phase_small_vs_cpu()
-    for name in ("zpass", "sl_rows"):
+    for name in ("zpass", "sl_rows", "segtopk"):
         kernels[name]["launches"] = counts[name]
-    emit({"kernels": [kernels["zpass"], kernels["sl_rows"]]})
+    emit({"kernels": [kernels["zpass"], kernels["sl_rows"],
+                      kernels["segtopk"]]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

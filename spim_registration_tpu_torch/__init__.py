@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of the multi-view SPIM reconstruction package.
 
 The JAX package `spim_registration_tpu` is the reference; this package
-reimplements its deconvolution path (registered views -> PSF extraction ->
+reimplements its in-memory reconstruction on PyTorch: registration (DoG
+bead detection -> descriptor matching + RANSAC -> global solve,
+`pipeline.register_views`) and deconvolution (PSF extraction ->
 deconvolution prep -> multi-view Richardson-Lucy, plus weighted-average
-fusion) on PyTorch, with hand-written CUDA kernels for the lowrank
-convolution (`ops/kernels/lowrank_conv.py`, sources in `csrc/`).
+fusion), with hand-written CUDA kernels for the lowrank convolution
+(`ops/kernels/lowrank_conv.py`) and the peak selection
+(`ops/kernels/segtopk.py`); sources in `csrc/`.
 
 Conventions are the reference's:
 - volumes are indexed (z, y, x), view stacks (v, z, y, x);

@@ -1,18 +1,27 @@
-"""Carry deconvolution state into the port from plain numpy arrays.
+"""Carry state into the port from plain numpy arrays and from the
+reference's parameter objects.
 
 The reference package keeps its state in JAX arrays; `np.asarray` turns
 them into numpy (bf16 arrays arrive with the `bfloat16` numpy dtype of
 `ml_dtypes`). These functions build the port's counterparts from such
-arrays without importing the reference, so a test can run both engines
-on bit-identical inputs — the same views, and the same bf16 matrices.
+arrays, and the port's parameter dataclasses from the reference's (read
+field by field, by name), without importing the reference — so a test
+can run both packages on bit-identical inputs and one configuration.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from spim_registration_tpu_torch.deconv.prep import DeconvolutionViews
+from spim_registration_tpu_torch.detect.dog import DoGParameters
+from spim_registration_tpu_torch.match.pairwise import PairwiseParameters
+from spim_registration_tpu_torch.models.ransac import RansacParameters
+from spim_registration_tpu_torch.pipeline.run import RegistrationConfig
+from spim_registration_tpu_torch.solve.global_opt import GlobalOptParameters
 from spim_registration_tpu_torch.utils.device import resolve_device
 
 
@@ -62,3 +71,33 @@ def lowrank_entries_from_numpy(entries, device=None) -> tuple:
         else:
             raise ValueError(f"unknown lowrank entry keys {sorted(e)}")
     return tuple(out)
+
+
+def _fields(cls, obj, **nested):
+    """An instance of the port's dataclass `cls` with each field read by
+    name from `obj` (the reference's counterpart); `nested` maps a field
+    name to the converter of its value."""
+    return cls(**{f.name: nested.get(f.name, lambda v: v)(
+        getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+def dog_parameters(obj) -> DoGParameters:
+    return _fields(DoGParameters, obj)
+
+
+def ransac_parameters(obj) -> RansacParameters:
+    return _fields(RansacParameters, obj)
+
+
+def pairwise_parameters(obj) -> PairwiseParameters:
+    return _fields(PairwiseParameters, obj, ransac=ransac_parameters)
+
+
+def global_opt_parameters(obj) -> GlobalOptParameters:
+    return _fields(GlobalOptParameters, obj)
+
+
+def registration_config(obj) -> RegistrationConfig:
+    return _fields(RegistrationConfig, obj, detection=dog_parameters,
+                   pairwise=pairwise_parameters,
+                   global_opt=global_opt_parameters)

@@ -18,6 +18,7 @@ import torch
 
 from spim_registration_tpu_torch.ops.kernels import build
 from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+from spim_registration_tpu_torch.ops.kernels import segtopk as st
 
 torch.set_num_threads(2)
 
@@ -59,7 +60,21 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         extract_psf,
         prepare_views_for_deconvolution,
     )
+    from spim_registration_tpu_torch.detect import (
+        detect_beads,
+        detect_beads_batch,
+    )
     from spim_registration_tpu_torch.fuse import fuse_views
+    from spim_registration_tpu_torch.match import (
+        match_pair,
+        match_pairs_batched,
+    )
+    from spim_registration_tpu_torch.pipeline import register_views
+    from spim_registration_tpu_torch.solve import (
+        GlobalOptParameters,
+        PairMatches,
+        solve_global,
+    )
     from spim_registration_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -68,6 +83,8 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
     psf = np.ones((3, 3, 3), np.float32) / 27
     bbox = BoundingBox("b", (0, 0, 0), (8, 8, 8))
     prep = views_from_numpy(vol[None], vol[None], [psf], 1.0, device="cpu")
+    pts = np.random.default_rng(0).uniform(0, 8, (10, 3)).astype(np.float32)
+    pm = [PairMatches(0, 1, pts, pts + 1.0)]
     calls = [
         lambda: resolve_device(None),
         lambda: resolve_device("cuda"),
@@ -77,6 +94,13 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         lambda: extract_psf(vol, ident, np.array([[4.0, 4.0, 4.0]])),
         lambda: prepare_views_for_deconvolution([vol], [ident], [psf], bbox),
         lambda: views_from_numpy(vol[None], vol[None], [psf], 1.0),
+        lambda: detect_beads(vol),
+        lambda: detect_beads_batch(vol[None]),
+        lambda: match_pair(pts, pts),
+        lambda: match_pairs_batched([pts, pts, pts], [(0, 1), (1, 2)]),
+        lambda: solve_global(pm, [0], GlobalOptParameters(
+            device_assembly=True)),
+        lambda: register_views([vol, vol]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -142,6 +166,36 @@ def test_kernels_match_plain_on_cuda(dtype):
         got = lc.conv_lowrank_folded_fused(vol, Mz, My, Mx, rad_z=rad)
         close(got, conv_lowrank_folded(vol, Mz, My, Mx),
               2.0 ** -6 if dt == torch.bfloat16 else 1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_segtopk_matches_plain_on_cuda():
+    """segtopk against its plain version, exactly: sparse fields, equal
+    values inside a segment, overflowing and all--inf segments, a ragged
+    segment count, every supported width and round count."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    for seg, S, rounds in ((512, 1001, 4), (256, 77, 3), (128, 512, 6)):
+        x = np.full((S, seg), -np.inf, np.float32)
+        pos = rng.choice(S * seg, size=S * 3, replace=False)
+        x.reshape(-1)[pos] = rng.integers(1, 6, S * 3) / 8.0   # many ties
+        x[5, :9] = 0.5                                         # overflow
+        x[7] = -np.inf                                         # all -inf
+        x[9, ::7] = rng.random(len(x[9, ::7]))                 # dense row
+        t = torch.from_numpy(x)
+        want = st.segment_topk_reference(t, rounds)
+        n0 = st.segment_topk.launches
+        got = st.segment_topk(t.to(dev), rounds)
+        assert st.segment_topk.launches == n0 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (seg, S, rounds)
+    with pytest.raises(ValueError, match="cannot take"):
+        st.segment_topk(torch.zeros((4, 100), device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        st.segment_topk(torch.zeros((4, 512), device=dev,
+                                    dtype=torch.float64))
     torch.cuda.synchronize()
 
 
