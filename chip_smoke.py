@@ -36,7 +36,17 @@ package) and exits nonzero on any failure:
    fuse_views -> deconvolve) with the transform-error and sharpening
    checks;
 7. the card against the port's plain CPU path on small inputs
-   (Richardson-Lucy, detection).
+   (Richardson-Lucy, detection);
+8. the fused Difference-of-Gaussian kernel (`dog_fused`) on the detection
+   volume at the detection configuration's sigmas and on a ragged
+   anisotropic volume, against its plain version, with identical peak
+   sets; the fully fused lowrank conv (`conv_lowrank_folded_zfused`) is
+   held in phase 3 on the staged highest-rank matrices and at 208^3;
+9. the headless CLI over one dataset XML (simulate 4 x 256^3 -> detect ->
+   register -> fuse -> deconvolve with the lowrank backend and with the
+   FFT backend -> info), each verb through `cli.main` in-process:
+   per-verb walls, kernel launches, the registration against the
+   simulated truth, the sharpening and lowrank against FFT.
 
 Each phase prints one JSON line; then a `kernels` JSON line, the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`.
@@ -66,6 +76,9 @@ DETECT_VIEWS, SEG, ROUNDS = 8, 512, 4
 GATE_TOL = 5e-4
 KERNEL_TOL_NRMSE = 1e-3
 KERNEL_TOL_MAX = 2.0 ** -7       # x max|out|: one bf16 ULP of the scale
+# the CLI phase's lowrank deconvolution against the FFT one: its PSFs are
+# approximated to psf_rank_tol = 1e-2, so that is the limit of the output
+CLI_LOWRANK_TOL = 1e-2
 
 
 def emit(obj) -> None:
@@ -124,11 +137,13 @@ def kernel_error(got, want) -> dict:
 
 
 def _counters():
+    from spim_registration_tpu_torch.ops.kernels import dog as kd
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
     from spim_registration_tpu_torch.ops.kernels import segtopk as st
 
     return {"zpass": lc.zpass, "sl_rows": lc.sl_rows,
-            "segtopk": st.segment_topk}
+            "segtopk": st.segment_topk, "dog": kd.dog_fused,
+            "zfused": lc.zfused}
 
 
 def reset_launches() -> None:
@@ -285,6 +300,7 @@ def phase_kernels(runner) -> dict:
                              f"{bad}")
     zp_err = max(cases[k]["max_abs_err"] for k in ("banded", "dense", "slab"))
     return {
+        "zfused": phase_zfused(entry, runner.psi0),
         "zpass": {"name": "zpass", "route": "cuda",
                   "source": "spim_registration_tpu_torch/csrc/zpass.cu",
                   "replaces": "spim_registration_tpu/ops/pallas/"
@@ -304,6 +320,264 @@ def phase_kernels(runner) -> dict:
                     "bound_ms": sl_bound, "bound_by": sl_by,
                     "library_ms": None},
     }
+
+
+def phase_zfused(entry, psi) -> dict:
+    """The fully fused lowrank conv (kernel #6) through its entry point
+    `conv_lowrank_folded_zfused` on the staged highest-rank entry (the
+    main path's matrices and half-supports) and the RL estimate psi:
+    against the plain chain `conv_lowrank_folded` and against the
+    zpass + sl_rows pair; then a ragged 208^3 case (rank 22, 19 taps per
+    axis, random factors); times, bound and launches."""
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.separable import (
+        conv_lowrank_folded,
+        folded_conv_matrices,
+    )
+
+    Mz, My, Mx = (M[0] for M in entry["mat"])
+    rz = entry["rad"][0]
+    ry, rx = lc.band_radius(My), lc.band_radius(Mx)
+    R = Mz.shape[0]
+    Z, Y, X = psi.shape
+    reset_launches()
+    got = lc.conv_lowrank_folded_zfused(psi, Mz, My, Mx, hz=rz)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cases = {"plain": kernel_error(got, conv_lowrank_folded(psi, Mz, My,
+                                                            Mx)),
+             "pair": kernel_error(got, lc.conv_lowrank_folded_fused(
+                 psi, Mz, My, Mx, rad_z=rz))}
+    rng = np.random.default_rng(4)
+    n = 208
+    mats = [torch.from_numpy(M).cuda().to(torch.bfloat16)
+            for M in folded_conv_matrices(
+                *[rng.standard_normal((R, 19)) * 0.3 for _ in range(3)],
+                (n, n, n))]
+    vol = torch.from_numpy(rng.random((n,) * 3).astype(np.float32)).cuda()
+    cases["ragged_208"] = kernel_error(
+        lc.conv_lowrank_folded_zfused(vol, *mats, hz=9),
+        conv_lowrank_folded(vol, *mats))
+    del mats, vol
+    vm = psi.to(torch.bfloat16).contiguous()
+    times = {"ms": cuda_ms(lambda: lc.zfused(vm, Mz, My, Mx, rz, ry, rx),
+                           10),
+             "plain_ms": cuda_ms(lambda: conv_lowrank_folded(vm, Mz, My, Mx),
+                                 3),
+             "pair_ms": cuda_ms(lambda: lc.conv_lowrank_folded_fused(
+                 vm, Mz, My, Mx, rad_z=rz), 10)}
+    # the kernel reads only the band of each matrix: its nonzeros
+    nnz = lambda M: float((M != 0).sum())              # noqa: E731
+    n_bytes = float(vm.numel() * 2 + Z * Y * X * 4) \
+        + (nnz(Mz) + nnz(My) + nnz(Mx)) * 2
+    n_ops = 2.0 * (nnz(Mz) * Y * X + nnz(My) * Z * X + nnz(Mx) * Z * Y) \
+        + float(R) * Z * Y * X
+    bound, by = bound_ms(n_bytes, n_ops)
+    emit({"phase": "kernels", "kernel": "zfused", "rank": R, "rad": [rz, ry,
+                                                                    rx],
+          "shape": [Z, Y, X], "cases": cases, "times_ms": times,
+          "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
+          "launches": launches})
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"zfused disagrees on {bad}")
+    if launches["zfused"] != 1:
+        raise AssertionError(f"zfused launches {launches}")
+    return {"name": "zfused", "route": "cuda",
+            "source": "spim_registration_tpu_torch/csrc/zfused.cu",
+            "replaces": "spim_registration_tpu/ops/pallas/"
+                        "lowrank_conv.py:430 (_zfused_kernel)",
+            "launches": launches["zfused"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "pair_ms": times["pair_ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def phase_dog(vol: np.ndarray) -> dict:
+    """The fused DoG (kernel #5) through `dog_fused` on the detection
+    volume (normalized as detection normalizes it) at the detection
+    configuration's effective sigmas, against `dog_reference`, with the
+    peak sets of `find_peaks_localized` on both; then a ragged anisotropic
+    21 x 33 x 47 case; times, bound and launches."""
+    from spim_registration_tpu_torch.detect import (
+        DoGParameters,
+        effective_sigmas,
+    )
+    from spim_registration_tpu_torch.ops.extrema import find_peaks_localized
+    from spim_registration_tpu_torch.ops.gaussian import dog_sigmas
+    from spim_registration_tpu_torch.ops.kernels import dog as kd
+
+    params = DoGParameters(sigma=1.8, threshold=0.004)
+    s1 = effective_sigmas(params)
+    s2 = tuple(s * 2.0 ** (1.0 / params.steps_per_octave) for s in s1)
+    norm = np.float32(dog_sigmas(params.sigma, params.threshold)[2])
+    v = torch.from_numpy(vol).cuda()
+    v = (v - v.min()) / torch.clamp(v.max() - v.min(), min=1e-12)
+    reset_launches()
+    got = kd.dog_fused(v, s1, s2)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = kd.dog_reference(v, s1, s2)
+    tol = 1e-5 * float(v.abs().max())
+    err = float((got - want).abs().max())
+
+    def peaks(dog):
+        pos, _, ok, _ = find_peaks_localized(dog * norm, params.threshold,
+                                             params.max_peaks)
+        p = pos[ok].cpu().numpy()
+        return p[np.lexsort(np.round(p).T)]
+
+    pk, pp = peaks(got), peaks(want)
+    same = pk.shape == pp.shape and np.array_equal(np.round(pk),
+                                                   np.round(pp))
+    rng = np.random.default_rng(6)
+    small = torch.from_numpy(rng.normal(size=(21, 33, 47)).astype(
+        np.float32)).cuda()
+    a1, a2 = (1.2, 1.8, 1.8), (1.5, 2.2, 2.2)
+    err_small = float((kd.dog_fused(small, a1, a2)
+                       - kd.dog_reference(small, a1, a2)).abs().max())
+    tol_small = 1e-5 * float(small.abs().max())
+    times = {"ms": cuda_ms(lambda: kd.dog_fused(v, s1, s2), 20),
+             "plain_ms": cuda_ms(lambda: kd.dog_reference(v, s1, s2), 10)}
+    _, radii = kd.dog_taps(s1, s2)
+    taps = float((2 * radii + 1).sum())
+    n_vox = float(v.numel())
+    t_bytes = 2 * n_vox * 4 / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_vox * (2 * taps + 1) / PEAK_F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    emit({"phase": "dog", "shape": list(vol.shape), "sigma1": list(s1),
+          "sigma2": list(s2), "radii": radii.tolist(), "max_abs_err": err,
+          "tol": tol, "peaks": [len(pk), len(pp)], "same_peaks": same,
+          "max_peak_pos_diff_px": (float(np.abs(pk - pp).max())
+                                   if same and len(pk) else None),
+          "ragged": {"shape": [21, 33, 47], "sigma1": a1, "sigma2": a2,
+                     "max_abs_err": err_small, "tol": tol_small},
+          "times_ms": times, "taps_per_voxel": taps, "bound_ms": bound,
+          "launches": launches})
+    if not (err <= tol and err_small <= tol_small):
+        raise AssertionError(f"dog_fused differs from its plain version: "
+                             f"{err} (tol {tol}), ragged {err_small}")
+    if not same or len(pk) < 380:
+        raise AssertionError(f"dog_fused peaks {len(pk)} vs plain "
+                             f"{len(pp)}, same sites {same}")
+    if launches["dog"] != 1:
+        raise AssertionError(f"dog_fused launches {launches}")
+    return {"name": "dog", "route": "cuda",
+            "source": "spim_registration_tpu_torch/csrc/dog.cu",
+            "replaces": "spim_registration_tpu/ops/pallas/dog.py:115 "
+                        "(dog_pallas inner kernel)",
+            "launches": launches["dog"], "max_abs_err": max(err, err_small),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_cli() -> None:
+    """The headless CLI on one dataset XML, each verb through `cli.main`
+    in-process in a temporary directory of the checkout: simulate 4 views
+    of 256^3 (300 beads, per-view PSF blur, seed 11) -> detect -> register
+    -> fuse -> deconvolve (lowrank, 10 iterations; the raw extracted PSFs
+    decompose to 1% at ranks ~20, hence psf_rank_tol=0.01) -> the same
+    deconvolve on the exact FFT backend, which the lowrank output is held
+    against (nrmse <= CLI_LOWRANK_TOL) -> info."""
+    import contextlib
+    import io
+    import tempfile
+
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core.xml_io import load_dataset
+    from spim_registration_tpu_torch.fuse.bounding_box import (
+        maximal_bounding_box,
+    )
+
+    walls, launches, logs = {}, {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_cli_smoke_") as d:
+        xml = os.path.join(d, "dataset.xml")
+        fused_p, psi_p, fft_p = (os.path.join(d, f) for f in (
+            "fused.npy", "psi.npy", "psi_fft.npy"))
+        verbs = {
+            "simulate": ["simulate", "--out", d, "--views", str(N_VIEWS),
+                         "--shape", *map(str, SHAPE), "--beads", "300",
+                         "--blur", "--seed", "11"],
+            "detect": ["detect", xml],
+            "register": ["register", xml],
+            "fuse": ["fuse", xml, "--out", fused_p],
+            "deconvolve": ["deconvolve", xml, "--out", psi_p,
+                           "--set", "deconvolution.conv_backend=lowrank",
+                           "--set", "deconvolution.num_iterations=10",
+                           "--set", "deconvolution.psf_rank_tol=0.01"],
+            "deconvolve_fft": ["deconvolve", xml, "--out", fft_p,
+                               "--set", "deconvolution.conv_backend=fft",
+                               "--set", "deconvolution.num_iterations=10"],
+            "info": ["info", xml],
+        }
+        for name, argv in verbs.items():
+            buf = io.StringIO()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launches[name] = read_launches()
+            logs[name] = buf.getvalue().strip().splitlines()[-6:]
+            if rc != 0:
+                raise AssertionError(f"cli {name} exited {rc}: {logs[name]}")
+        ds = load_dataset(xml)
+        views = ds.views_of_timepoint(0)
+        errs, n_pts = [], []
+        for v in views:
+            p = v.interest_points["beads"].points
+            n_pts.append(len(p))
+            A = v.model()
+            T = np.load(os.path.join(d, f"truth_tp0_setup{v.setup_id}.npy"))
+            errs.append(float(np.mean(np.linalg.norm(
+                (p @ A[:, :3].T + A[:, 3]) - (p @ T[:, :3].T + T[:, 3]),
+                axis=1))))
+        names = [[t.name for t in v.transforms] for v in views]
+        fused, psi, psi_fft = (np.load(f) for f in (fused_p, psi_p, fft_p))
+        bbox = maximal_bounding_box([tuple(v.size) for v in views],
+                                    [v.model() for v in views])
+    A0 = views[0].model()
+    world = views[0].interest_points["beads"].points @ A0[:, :3].T + A0[:, 3]
+    idx = np.round(world).astype(int) - np.array(bbox.min)
+    idx = idx[np.all((idx >= 0) & (idx < np.array(bbox.shape)), axis=1)]
+    pk_f = float(np.mean(fused[tuple(idx.T)]))
+    pk_d = float(np.mean(psi[tuple(idx.T)]))
+    gate = nrmse(psi_fft, psi)
+    emit({"phase": "cli", "views": N_VIEWS, "shape": list(SHAPE),
+          "walls_s": walls, "launches": launches,
+          "points_per_view": n_pts, "transforms": names,
+          "transform_error_px": errs, "transform_error_tol": 0.5,
+          "bbox": [list(map(int, bbox.min)), list(map(int, bbox.max))],
+          "fused_shape": list(fused.shape), "psi_shape": list(psi.shape),
+          "peak_fused": pk_f, "peak_deconv": pk_d,
+          "sharpening": pk_d / max(pk_f, 1e-12),
+          "lowrank_vs_fft_nrmse": gate, "lowrank_vs_fft_tol": CLI_LOWRANK_TOL,
+          "stdout_tail": logs})
+    if any(n != ["registration"] for n in names) or min(n_pts) < 100:
+        raise AssertionError(f"the XML did not keep the transforms and "
+                             f"points: {names}, {n_pts}")
+    if not max(errs) < 0.5:
+        raise AssertionError(f"cli registration error {errs} px >= 0.5")
+    if launches["detect"]["segtopk"] == 0:
+        raise AssertionError(f"detect did not run segtopk: {launches}")
+    if launches["deconvolve"]["zpass"] == 0 \
+            or launches["deconvolve"]["sl_rows"] == 0:
+        raise AssertionError(f"deconvolve did not run the kernels: "
+                             f"{launches['deconvolve']}")
+    if not (fused.shape == psi.shape == bbox.shape
+            and np.all(np.isfinite(psi))):
+        raise AssertionError(f"bad outputs {fused.shape} {psi.shape}")
+    if not pk_d > 1.5 * pk_f:
+        raise AssertionError(f"cli deconvolution did not sharpen: {pk_d} "
+                             f"vs {pk_f}")
+    if not gate <= CLI_LOWRANK_TOL:
+        raise AssertionError(f"cli lowrank vs fft nrmse {gate} > "
+                             f"{CLI_LOWRANK_TOL}")
 
 
 def phase_rl(psfs, factors) -> tuple:
@@ -359,7 +633,8 @@ def phase_rl(psfs, factors) -> tuple:
     emit(info)
     if not gate < GATE_TOL:
         raise AssertionError(f"lowrank vs fft gate {gate} >= {GATE_TOL}")
-    if counts != {"zpass": expected, "sl_rows": expected, "segtopk": 0}:
+    if counts != {"zpass": expected, "sl_rows": expected, "segtopk": 0,
+                  "dog": 0, "zfused": 0}:
         raise AssertionError(f"kernel launches {counts}, expected "
                              f"{expected} of zpass and sl_rows")
     return counts, lowrank
@@ -798,16 +1073,19 @@ def main() -> int:
     counts["segtopk"] = phase_detect(vol)
     torch.cuda.empty_cache()
     kernels["segtopk"] = phase_segtopk(vol)
+    kernels["dog"] = phase_dog(vol)
     del vol
     torch.cuda.empty_cache()
     phase_match()
     torch.cuda.empty_cache()
     phase_pipeline()
     phase_small_vs_cpu()
+    torch.cuda.empty_cache()
+    phase_cli()
     for name in ("zpass", "sl_rows", "segtopk"):
         kernels[name]["launches"] = counts[name]
-    emit({"kernels": [kernels["zpass"], kernels["sl_rows"],
-                      kernels["segtopk"]]})
+    emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
+                                           "dog", "zfused")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,420 @@
+"""Command-line interface — the headless execution surface.
+
+Port of the reference's `cli.py`: every pipeline stage is a subcommand on
+one dataset XML, loading it and saving it again around each stage (the
+XML is the checkpoint).
+
+    python -m spim_registration_tpu_torch.cli simulate --out ds/ --views 4
+    python -m spim_registration_tpu_torch.cli detect     ds/dataset.xml
+    python -m spim_registration_tpu_torch.cli register   ds/dataset.xml
+    python -m spim_registration_tpu_torch.cli define-bbox ds/dataset.xml roi --from-points beads
+    python -m spim_registration_tpu_torch.cli fuse       ds/dataset.xml --out fused.npy
+    python -m spim_registration_tpu_torch.cli deconvolve ds/dataset.xml --out psi.npy
+    python -m spim_registration_tpu_torch.cli info       ds/dataset.xml
+
+The compute verbs run on the CUDA card; `--device cpu` runs them on the
+host (the counterpart of the reference's JAX_PLATFORMS). Verbs and options
+the port does not have yet (`define`, `resave`, `tune`, `icp-refine`,
+`cluster-*`, `--mesh`, `--multihost`, `--profile`, `--out-of-core`,
+`--append-hdf5`, zarr/n5 export) exit with code 2 and say so; nothing
+falls back to another path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Dict
+
+import numpy as np
+
+# verbs of the reference CLI that the port does not have yet
+NOT_PORTED = ("define", "resave", "tune", "icp-refine", "cluster-job",
+              "cluster-merge")
+
+
+def _dataset_with_loader(xml_path: str):
+    """The dataset of `xml_path` with the loader its base directory's
+    files call for: BDV HDF5 (`data.h5`), `.npy` volumes or TIFF stacks.
+    Formats the port cannot read yet (zarr, n5, CZI, MicroManager) raise."""
+    from spim_registration_tpu_torch.core.imgloaders import (
+        hdf5_loader,
+        npy_loader,
+        tiff_stack_loader,
+    )
+    from spim_registration_tpu_torch.core.xml_io import load_dataset
+
+    ds = load_dataset(xml_path)
+    base = ds.base_path
+    files = sorted(os.listdir(base))
+    h5 = os.path.join(base, "data.h5")
+    unported = [f for f in files
+                if os.path.exists(os.path.join(base, f, "meta.json"))
+                or (f.endswith(".n5") and os.path.isdir(os.path.join(base, f)))
+                or f.endswith(".czi") or "_MMStack_Pos" in f]
+    if os.path.exists(h5):
+        ds.loader = hdf5_loader(h5)
+    elif unported:
+        raise ValueError(f"{base}: reading {unported[0]!r} (zarr, n5, CZI "
+                         f"or MicroManager) is not ported yet")
+    elif any(f.endswith(".npy") for f in files):
+        ds.loader = npy_loader(base)
+    else:
+        ds.loader = tiff_stack_loader(base)
+    return ds
+
+
+def _load_config(args):
+    from spim_registration_tpu_torch.pipeline.config import (
+        RunConfig,
+        apply_overrides,
+        from_json,
+    )
+
+    cfg = from_json(args.config) if getattr(args, "config", None) \
+        else RunConfig()
+    overrides: Dict[str, object] = {}
+    for ov in getattr(args, "set", []) or []:
+        key, _, val = ov.partition("=")
+        try:
+            overrides[key] = json.loads(val)
+        except json.JSONDecodeError:
+            overrides[key] = val
+    return apply_overrides(cfg, overrides) if overrides else cfg
+
+
+def cmd_simulate(args):
+    from spim_registration_tpu_torch.core.dataset import (
+        Dataset,
+        ViewDescription,
+    )
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.utils.simulation import (
+        make_multiview_scene,
+    )
+
+    rng = np.random.default_rng(args.seed)
+    os.makedirs(args.out, exist_ok=True)
+    shape = tuple(args.shape)
+    psf_sigmas = None
+    if args.blur:
+        psf_sigmas = [(2.5, 1.0, 1.0), (1.0, 1.0, 2.5), (2.0, 1.2, 1.2),
+                      (1.2, 1.2, 2.0), (1.8, 1.0, 1.4), (1.4, 1.0, 1.8)]
+    ds = Dataset(base_path=args.out)
+    for tp in range(args.timepoints):
+        scene = make_multiview_scene(
+            rng, n_views=args.views, shape=shape, n_beads=args.beads,
+            bead_sigma=args.bead_sigma, psf_sigmas=psf_sigmas)
+        for s, vol in enumerate(scene.volumes):
+            np.save(os.path.join(args.out, f"tp{tp}_setup{s}.npy"),
+                    vol.astype(np.float32))
+            ds.add_view(ViewDescription(view_id=(tp, s), angle=s,
+                                        size=shape))
+            np.save(os.path.join(args.out, f"truth_tp{tp}_setup{s}.npy"),
+                    scene.models[s])
+    xml = os.path.join(args.out, "dataset.xml")
+    save_dataset(ds, xml)
+    print(f"wrote {xml} ({args.timepoints} tp x {args.views} views)")
+
+
+def cmd_detect(args):
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
+    from spim_registration_tpu_torch.utils.manifest import write_manifest
+
+    ds = _dataset_with_loader(args.xml)
+    cfg = _load_config(args)
+    if args.method == "dom":
+        from spim_registration_tpu_torch.detect.dom import detect_beads_dom
+
+        pstr = (f"DoM r1={cfg.dom.radius1} r2={cfg.dom.radius2} "
+                f"t={cfg.dom.threshold}")
+        for vid in sorted(ds.views):
+            pts, resp = detect_beads_dom(ds.get_image(vid), cfg.dom,
+                                         device=args.device)
+            ds.set_interest_points(vid, cfg.label, pts, resp,
+                                   parameters=pstr)
+    else:
+        detect_beads_dataset(ds, label=cfg.label, params=cfg.detection,
+                             device=args.device)
+    save_dataset(ds, args.xml)
+    counts = {}
+    for vid in sorted(ds.views):
+        ips = ds.views[vid].interest_points.get(cfg.label)
+        counts[str(vid)] = 0 if ips is None else len(ips.points)
+        print(f"view {vid}: {counts[str(vid)]} points")
+    write_manifest(ds.base_path, "detect", cfg.detection,
+                   {"points_per_view": counts})
+
+
+def cmd_register(args):
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.pipeline.run import (
+        RegistrationConfig,
+        register_views,
+    )
+    from spim_registration_tpu_torch.utils.manifest import write_manifest
+
+    ds = _dataset_with_loader(args.xml)
+    cfg = _load_config(args)
+    rc = RegistrationConfig(detection=cfg.detection, pairwise=cfg.pairwise,
+                            global_opt=cfg.global_opt)
+    for tp in ds.timepoints():
+        views = ds.views_of_timepoint(tp)
+        if args.channel is not None:
+            # per-channel registration ("process channels separately")
+            views = [v for v in views if v.channel == args.channel]
+            if not views:
+                print(f"tp {tp}: no views with channel {args.channel}",
+                      file=sys.stderr)
+                continue
+        if all(cfg.label in v.interest_points for v in views):
+            pts = [np.asarray(v.interest_points[cfg.label].points)
+                   for v in views]
+            res = register_views(None, rc, points=pts, device=args.device)
+        else:
+            vols = [ds.get_image(v.view_id) for v in views]
+            res = register_views(vols, rc, device=args.device)
+        for v, vd in enumerate(views):
+            vd.set_transform("registration", res.models[v])
+        print(f"tp {tp}: residual mean={res.mean_error:.4f} "
+              f"max={res.max_error:.4f} px")
+        write_manifest(ds.base_path, "register", rc, {
+            "timepoint": tp,
+            "mean_error_px": res.mean_error,
+            "max_error_px": res.max_error,
+            "pairs": {f"{i}-{j}": {
+                "candidates": r.num_candidates,
+                "inliers": r.num_inliers,
+                "valid": r.valid,
+                "mean_error_px": r.mean_error,
+            } for (i, j), r in res.pair_results.items()},
+            "timings_s": res.timings,
+        })
+    save_dataset(ds, args.xml)
+
+
+def _resolve_bbox(ds, args, vols, models):
+    """Fusion ROI: a named bounding box stored in the XML (`--bbox NAME`)
+    or the maximal box of the transformed view corners (default)."""
+    from spim_registration_tpu_torch.fuse.bounding_box import (
+        maximal_bounding_box,
+    )
+
+    name = args.bbox
+    if name:
+        if name not in ds.bounding_boxes:
+            raise KeyError(
+                f"bounding box {name!r} not in dataset (have: "
+                f"{sorted(ds.bounding_boxes)})")
+        return ds.bounding_boxes[name]
+    return maximal_bounding_box([v.shape for v in vols], models)
+
+
+def _export_volume(args, ds, out, tp, what):
+    """Write a fused or deconvolved volume as `.npy`, or as TIFF for any
+    other suffix; `{tp}` in `--out` names the timepoint."""
+    from spim_registration_tpu_torch.core.imgloaders import save_tiff_stack
+
+    n_tp = len(ds.timepoints())
+    path = args.out.replace("{tp}", str(tp)) if "{tp}" in args.out \
+        else (args.out if n_tp == 1 else f"tp{tp}_{args.out}")
+    if path.endswith(".zarr") or path.endswith(".n5"):
+        raise ValueError(f"{path}: zarr/n5 export is not ported yet")
+    if path.endswith(".npy"):
+        np.save(path, out)
+    else:
+        save_tiff_stack(path, out)
+    print(f"tp {tp}: {what} {out.shape} -> {path}")
+
+
+def cmd_fuse(args):
+    from spim_registration_tpu_torch.fuse.weighted_avg import fuse_views
+
+    ds = _dataset_with_loader(args.xml)
+    cfg = _load_config(args)
+    for tp in ds.timepoints():
+        views = ds.views_of_timepoint(tp)
+        vols = [ds.get_image(v.view_id) for v in views]
+        models = [v.model() for v in views]
+        bbox = _resolve_bbox(ds, args, vols, models)
+        out = fuse_views(vols, models, bbox, cfg.fusion, device=args.device)
+        _export_volume(args, ds, out, tp, "fused")
+
+
+def cmd_deconvolve(args):
+    from spim_registration_tpu_torch.deconv import (
+        deconvolve,
+        extract_psf,
+        prepare_views_for_deconvolution,
+    )
+
+    ds = _dataset_with_loader(args.xml)
+    cfg = _load_config(args)
+    for tp in ds.timepoints():
+        views = ds.views_of_timepoint(tp)
+        vols = [ds.get_image(v.view_id) for v in views]
+        models = [v.model() for v in views]
+        psfs = []
+        for v, vol in zip(views, vols):
+            ips = v.interest_points.get(cfg.label)
+            if ips is None or len(ips.points) < 5:
+                print(f"view {v.view_id}: no interest points; run detect "
+                      "first", file=sys.stderr)
+                return 1
+            psf, _n = extract_psf(vol, v.model(), np.asarray(ips.points),
+                                  device=args.device)
+            psfs.append(psf)
+        bbox = _resolve_bbox(ds, args, vols, models)
+        prep = prepare_views_for_deconvolution(vols, models, psfs, bbox,
+                                               device=args.device)
+        out = deconvolve(prep, cfg.deconvolution, device=args.device)
+        _export_volume(args, ds, out, tp, "deconvolved")
+
+
+def cmd_define_bbox(args):
+    """Store a named bounding box in the XML: explicit --min/--max, or
+    --from-points LABEL to box the transformed interest points plus
+    --margin."""
+    from spim_registration_tpu_torch.core.dataset import BoundingBox
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+
+    ds = _dataset_with_loader(args.xml)
+    if args.from_points:
+        from spim_registration_tpu_torch.fuse.bounding_box import (
+            bounding_box_from_points,
+        )
+
+        pts = []
+        for v in ds.views.values():
+            ips = v.interest_points.get(args.from_points)
+            if ips is None or not len(ips.points):
+                continue
+            A = v.model()
+            pts.append(np.asarray(ips.points) @ A[:, :3].T + A[:, 3])
+        if not pts:
+            print(f"no interest points labeled {args.from_points!r}; "
+                  "run detect first", file=sys.stderr)
+            return 1
+        bb = bounding_box_from_points(np.concatenate(pts),
+                                      margin=args.margin, name=args.name)
+    elif args.min is not None and args.max is not None:
+        bb = BoundingBox(args.name, tuple(args.min), tuple(args.max))
+    else:
+        print("give --min Z Y X and --max Z Y X, or --from-points LABEL",
+              file=sys.stderr)
+        return 1
+    ds.bounding_boxes[args.name] = bb
+    save_dataset(ds, args.xml)
+    print(f"bounding box {args.name!r}: min={bb.min} max={bb.max} "
+          f"shape={bb.shape} -> {args.xml}")
+
+
+def cmd_info(args):
+    from spim_registration_tpu_torch.core.xml_io import load_dataset
+
+    ds = _dataset_with_loader(args.xml) if args.load_images \
+        else load_dataset(args.xml)
+    print(f"dataset: {args.xml}")
+    print(f"timepoints: {ds.timepoints()}")
+    print(f"setups: {ds.setups()}")
+    for vid, vd in sorted(ds.views.items()):
+        labels = {k: len(v.points) for k, v in vd.interest_points.items()}
+        print(f"  view {vid}: angle={vd.angle} size={vd.size} "
+              f"transforms={[t.name for t in vd.transforms]} "
+              f"points={labels}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="spim-torch", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--config", help="RunConfig JSON file")
+        sp.add_argument("--set", action="append", metavar="KEY=VAL",
+                        help="dotted config override, e.g. "
+                             "detection.sigma=2.0")
+        sp.add_argument("--device", default="cuda",
+                        help="where the stage runs: cuda (default) or cpu")
+
+    sp = sub.add_parser("simulate", help="generate a synthetic dataset")
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--views", type=int, default=4)
+    sp.add_argument("--timepoints", type=int, default=1)
+    sp.add_argument("--beads", type=int, default=120)
+    sp.add_argument("--shape", type=int, nargs=3, default=[96, 96, 96])
+    sp.add_argument("--bead-sigma", type=float, default=1.7)
+    sp.add_argument("--blur", action="store_true",
+                    help="apply per-view anisotropic PSF blur")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_simulate)
+
+    sp = sub.add_parser("detect")
+    sp.add_argument("xml")
+    sp.add_argument("--method", default="dog", choices=("dog", "dom"),
+                    help="DoG (default) or integral-image "
+                         "Difference-of-Mean")
+    common(sp)
+    sp.set_defaults(fn=cmd_detect)
+
+    sp = sub.add_parser("register")
+    sp.add_argument("xml")
+    sp.add_argument("--channel", type=int, default=None,
+                    help="register only this channel "
+                         "(default: all views together)")
+    common(sp)
+    sp.set_defaults(fn=cmd_register)
+
+    sp = sub.add_parser("define-bbox", help="persist a named bounding "
+                        "box (explicit or from detections)")
+    sp.add_argument("xml")
+    sp.add_argument("name")
+    sp.add_argument("--min", type=int, nargs=3, metavar=("Z", "Y", "X"))
+    sp.add_argument("--max", type=int, nargs=3, metavar=("Z", "Y", "X"))
+    sp.add_argument("--from-points", metavar="LABEL",
+                    help="box the transformed interest points with this "
+                         "label")
+    sp.add_argument("--margin", type=int, default=10)
+    sp.set_defaults(fn=cmd_define_bbox)
+
+    for name, fn, default in (("fuse", cmd_fuse, "fused.tif"),
+                              ("deconvolve", cmd_deconvolve,
+                               "deconvolved.tif")):
+        sp = sub.add_parser(name)
+        sp.add_argument("xml")
+        sp.add_argument("--out", default=default,
+                        help=".npy, or TIFF for any other suffix")
+        sp.add_argument("--bbox", metavar="NAME",
+                        help="use this named bounding box from the XML "
+                             "instead of the automatic maximal box")
+        common(sp)
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("info")
+    sp.add_argument("xml")
+    sp.add_argument("--load-images", action="store_true")
+    sp.set_defaults(fn=cmd_info)
+    return p
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:
+        print(f"error: the {argv[0]!r} verb is not ported yet "
+              f"(see ROADMAP.md)", file=sys.stderr)
+        return 2
+    args = build_parser().parse_args(argv)
+    try:
+        return args.fn(args) or 0
+    except (FileNotFoundError, KeyError, ValueError, ImportError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except BrokenPipeError:  # stdout closed early (e.g. piped to head)
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

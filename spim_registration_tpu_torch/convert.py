@@ -20,6 +20,11 @@ from spim_registration_tpu_torch.deconv.prep import DeconvolutionViews
 from spim_registration_tpu_torch.detect.dog import DoGParameters
 from spim_registration_tpu_torch.match.pairwise import PairwiseParameters
 from spim_registration_tpu_torch.models.ransac import RansacParameters
+from spim_registration_tpu_torch.pipeline.config import (
+    RunConfig,
+    from_dict,
+    to_dict,
+)
 from spim_registration_tpu_torch.pipeline.run import RegistrationConfig
 from spim_registration_tpu_torch.solve.global_opt import GlobalOptParameters
 from spim_registration_tpu_torch.utils.device import resolve_device
@@ -101,3 +106,16 @@ def registration_config(obj) -> RegistrationConfig:
     return _fields(RegistrationConfig, obj, detection=dog_parameters,
                    pairwise=pairwise_parameters,
                    global_opt=global_opt_parameters)
+
+
+def run_config(obj):
+    """The port's `pipeline.config.RunConfig` from the reference's (every
+    stage's parameters read field by field, by name, through the JSON
+    tree both packages share)."""
+    from spim_registration_tpu_torch.pipeline.config import (
+        RunConfig,
+        from_dict,
+        to_dict,
+    )
+
+    return from_dict(RunConfig, to_dict(obj))

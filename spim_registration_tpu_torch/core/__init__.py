@@ -1,6 +1,10 @@
-"""Dataset model pieces the deconvolution slice needs."""
+"""The dataset model, its XML persistence and the image loaders."""
 
 from spim_registration_tpu_torch.core.dataset import (  # noqa: F401
     BoundingBox,
+    Dataset,
+    InterestPoints,
+    ViewDescription,
+    ViewTransform,
     identity_transform,
 )

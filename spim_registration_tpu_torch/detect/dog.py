@@ -143,3 +143,38 @@ def detect_beads_batch(vols, params: DoGParameters = DoGParameters(),
     vols = _on(vols, dev)
     return [_unpack(*_detect_core(vols[i], params)[:3])
             for i in range(vols.shape[0])]
+
+
+def detect_beads_dataset(dataset, view_ids=None, label: str = "beads",
+                         params: DoGParameters = DoGParameters(),
+                         max_batch_views: int = 8, device=None) -> None:
+    """Detect interest points in dataset views and store them as
+    `InterestPoints` under `label` (the reference's `detect_beads_dataset`,
+    stage 1 of the pipeline). Views are grouped by their declared shape;
+    each group runs through `detect_beads_batch`, loading at most
+    `max_batch_views` images at once. Views whose declared size is missing
+    or differs from the image go one at a time through `detect_beads`."""
+    if view_ids is None:
+        view_ids = sorted(dataset.views)
+    param_str = (f"DoG s={params.sigma} t={params.threshold} "
+                 f"ds=xy{params.downsample_xy}/z{params.downsample_z}")
+    by_shape: dict = {}
+    for vid in view_ids:
+        size = dataset.views[vid].size
+        by_shape.setdefault(tuple(size) if size else None, []).append(vid)
+
+    for shape, vids in by_shape.items():
+        for i in range(0, len(vids), max_batch_views):
+            chunk = vids[i:i + max_batch_views]
+            imgs = [np.asarray(dataset.get_image(v)) for v in chunk]
+            if shape is None or any(im.shape != imgs[0].shape
+                                    for im in imgs):
+                results = [detect_beads(im, params, device) for im in imgs]
+            elif len(chunk) == 1:
+                results = [detect_beads(imgs[0], params, device)]
+            else:
+                results = detect_beads_batch(np.stack(imgs), params, device)
+            for vid, (pts, resp) in zip(chunk, results):
+                dataset.set_interest_points(vid, label, pts, resp,
+                                            parameters=param_str)
+            del imgs

@@ -1,7 +1,13 @@
-"""Fusion: weights and weighted-average fusion."""
+"""Fusion: bounding boxes, weights and weighted-average fusion."""
 
+from spim_registration_tpu_torch.fuse.bounding_box import (  # noqa: F401
+    bounding_box_from_points,
+    intersect_bounding_box,
+    maximal_bounding_box,
+)
 from spim_registration_tpu_torch.fuse.weighted_avg import (  # noqa: F401
     FusionParameters,
+    fuse_dataset,
     fuse_views,
 )
 from spim_registration_tpu_torch.fuse.weights import (  # noqa: F401

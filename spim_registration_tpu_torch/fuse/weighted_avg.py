@@ -165,3 +165,22 @@ def fuse_views(
                             dev)
         out[z0:z1] = chunk.cpu().numpy()
     return out
+
+
+def fuse_dataset(dataset, view_ids, bbox_name: Optional[str] = None,
+                 params: FusionParameters = FusionParameters(),
+                 device=None) -> np.ndarray:
+    """Fusion over a `Dataset` (the Image_Fusion plugin analog): the named
+    bounding box when the dataset has it, else the maximal box of the
+    transformed views."""
+    from spim_registration_tpu_torch.fuse.bounding_box import (
+        maximal_bounding_box,
+    )
+
+    vols = [dataset.get_image(v) for v in view_ids]
+    models = [dataset.views[v].model() for v in view_ids]
+    if bbox_name is not None and bbox_name in dataset.bounding_boxes:
+        bbox = dataset.bounding_boxes[bbox_name]
+    else:
+        bbox = maximal_bounding_box([v.shape for v in vols], models)
+    return fuse_views(vols, models, bbox, params, device)

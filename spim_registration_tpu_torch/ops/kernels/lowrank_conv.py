@@ -12,12 +12,19 @@ folded-matrix passes (`ops/separable.py`); here they run as two kernels:
   the rank loop inside the block, `o` written once in f32. Replaces
   `_sl_rows_kernel`.
 
+and, off the RL engine's path, the whole chain as one kernel:
+
+- `zfused` (csrc/zfused.cu): z, y and x passes and the rank sum per
+  output tile, the tile's volume window read once and reused across all
+  ranks, no intermediate in device memory. Replaces `_zfused_kernel`;
+  `conv_lowrank_folded_zfused` is its public entry point.
+
 Beside each wrapper sits its plain PyTorch version (`zpass_reference`,
-`fused_sl_reference`) with the same numerics. A wrapper takes the plain
-version only for tensors on the CPU; for CUDA tensors it launches its
-kernel or raises — there is no fallback. Each wrapper counts its kernel
-launches in a plain integer attribute (`zpass.launches`,
-`sl_rows.launches`).
+`fused_sl_reference`, `ops.separable.conv_lowrank_folded`) with the same
+numerics. A wrapper takes the plain version only for tensors on the CPU;
+for CUDA tensors it launches its kernel or raises — there is no fallback.
+Each wrapper counts its kernel launches in a plain integer attribute
+(`zpass.launches`, `sl_rows.launches`, `zfused.launches`).
 
 The TPU-only planning of the reference (VMEM plans, the X % 128 lane
 requirement, the y/x banding gate) has no counterpart: the CUDA kernels
@@ -33,6 +40,7 @@ import functools
 import torch
 
 from spim_registration_tpu_torch.ops.kernels import build
+from spim_registration_tpu_torch.ops.separable import conv_lowrank_folded
 
 # Output rows per band-window tile; equals TM in csrc/zpass.cu (checked
 # against the library when it loads).
@@ -240,3 +248,85 @@ def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
             out[s:s + sl] = run(Mz[:, s:s + sl], s)
         return out.to(vol.dtype)
     return run(Mz, 0).to(vol.dtype)
+
+
+def band_radius(M: torch.Tensor) -> int:
+    """The half-support of a stack of (R, n, n) band matrices: the largest
+    |column - row| over their nonzeros (0 for an all-zero stack)."""
+    nz = (M != 0).any(dim=0)
+    if not bool(nz.any()):
+        return 0
+    i, j = torch.nonzero(nz, as_tuple=True)
+    return int((j - i).abs().max())
+
+
+@functools.lru_cache(maxsize=None)
+def _zfused_lib():
+    lib = build.load("zfused")
+    lib.spim_zfused_smem.argtypes = [ctypes.c_int] * 6
+    lib.spim_zfused_smem.restype = ctypes.c_int
+    lib.spim_zfused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    lib.spim_zfused.restype = ctypes.c_int
+    return lib
+
+
+def zfused(vm: torch.Tensor, Mz: torch.Tensor, My: torch.Tensor,
+           Mx: torch.Tensor, hz: int, hy: int, hx: int) -> torch.Tensor:
+    """The fully fused lowrank conv of a (Z, Y, X) volume in the matrix
+    dtype with square band matrices of half-supports (hz, hy, hx):
+    (Z, Y, X) float32, the rank sum before the cast to the volume's dtype.
+    The half-supports must cover every nonzero of their band (as
+    `band_radius` measures it): this launch wrapper takes them as given,
+    as `zpass` takes its windows; `conv_lowrank_folded_zfused` checks them.
+    CPU tensors take `ops.separable.conv_lowrank_folded` (in float32);
+    CUDA tensors launch `csrc/zfused.cu` (bfloat16 only)."""
+    if all(t.device.type == "cpu" for t in (vm, Mz, My, Mx)):
+        return conv_lowrank_folded(vm.float(), Mz, My, Mx)
+    code = _check_cuda("zfused", vm, Mz, My, Mx)
+    if code != 0:
+        raise ValueError("zfused: the kernel takes bfloat16 matrices only")
+    Z, Y, X = vm.shape
+    R = Mz.shape[0]
+    if Mz.shape != (R, Z, Z) or My.shape != (R, Y, Y) \
+            or Mx.shape != (R, X, X):
+        raise ValueError(f"zfused: vm {tuple(vm.shape)}, Mz "
+                         f"{tuple(Mz.shape)}, My {tuple(My.shape)}, Mx "
+                         f"{tuple(Mx.shape)}: needs square (R, n, n) "
+                         f"matrices per axis")
+    lib = _zfused_lib()
+    if lib.spim_zfused_smem(Z, Y, X, hz, hy, hx) < 0:
+        raise ValueError(f"zfused: the kernel cannot take {(Z, Y, X)} with "
+                         f"half-supports {(hz, hy, hx)} (shared memory)")
+    out = torch.empty((Z, Y, X), dtype=torch.float32, device=vm.device)
+    err = lib.spim_zfused(
+        vm.data_ptr(), Mz.data_ptr(), My.data_ptr(), Mx.data_ptr(),
+        out.data_ptr(), R, Z, Y, X, hz, hy, hx,
+        torch.cuda.current_stream(vm.device).cuda_stream)
+    _raise_on(err, "zfused")
+    zfused.launches += 1
+    return out
+
+
+zfused.launches = 0
+
+
+def conv_lowrank_folded_zfused(vol: torch.Tensor, Mz: torch.Tensor,
+                               My: torch.Tensor, Mx: torch.Tensor, hz: int,
+                               tz: int = 16) -> torch.Tensor:
+    """Fully z+y+x-fused twin of `ops.separable.conv_lowrank_folded`
+    (the reference's `ops/pallas/lowrank_conv.py:493`): mirror-boundary
+    lowrank convolution of `vol` with the folded matrices, the output in
+    `vol`'s dtype. `hz`: the kernel's z half-support, as the reference
+    takes it; a value below the band of `Mz` raises (the kernel's window
+    would drop band columns). The y/x half-supports are measured from the
+    matrices (the kernel windows every axis). `tz` is the reference's
+    z-block hint; the CUDA kernel picks its own tiles."""
+    del tz
+    hz, rz = int(hz), band_radius(Mz)
+    if hz < rz:
+        raise ValueError(f"conv_lowrank_folded_zfused: hz={hz} is below the "
+                         f"z band's half-support {rz}")
+    vm = vol.to(Mz.dtype).contiguous()
+    return zfused(vm, Mz, My, Mx, hz, band_radius(My),
+                  band_radius(Mx)).to(vol.dtype)

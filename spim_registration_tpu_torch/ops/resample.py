@@ -2,7 +2,8 @@
 
 Port of the reference's `ops/resample.py` (`output_grid_coords`,
 `trilinear_sample`, `_hat_matrix`, `separable_resample`,
-`is_axis_aligned`). Samples outside the volume are 0 with inside=False.
+`is_axis_aligned`, `resample_affine`, `resample_affine_auto`). Samples
+outside the volume are 0 with inside=False.
 
 `trilinear_sample` reads the eight corners of each sample's cell with
 plain clamped gathers. The reference instead gathers one row of a rolled
@@ -18,6 +19,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from spim_registration_tpu_torch.models.affine import apply_affine
+from spim_registration_tpu_torch.utils.device import resolve_device
 
 
 def output_grid_coords(shape, offset=(0.0, 0.0, 0.0), dtype=torch.float32,
@@ -111,3 +115,40 @@ def is_axis_aligned(world_to_view: np.ndarray, tol: float = 1e-9) -> bool:
     M = np.asarray(world_to_view, np.float64)[:, :3]
     off = M - np.diag(np.diag(M))
     return bool(np.all(np.abs(off) <= tol * max(1.0, np.abs(M).max())))
+
+
+def resample_affine(vol: torch.Tensor, world_to_view: torch.Tensor,
+                    out_shape, out_offset=None):
+    """Render `vol` into an output grid: for each output voxel at world
+    coordinate w (its grid index plus `out_offset`), sample vol at
+    world_to_view @ w. `world_to_view` is the INVERSE of the view's model
+    (view -> world) affine. Returns (block (out_shape,), inside mask)."""
+    grid = output_grid_coords(out_shape, dtype=vol.dtype, device=vol.device)
+    if out_offset is not None:
+        grid = grid + torch.as_tensor(out_offset, dtype=vol.dtype,
+                                      device=vol.device)
+    view_coords = apply_affine(
+        torch.as_tensor(world_to_view, dtype=vol.dtype, device=vol.device),
+        grid)
+    return trilinear_sample(vol, view_coords)
+
+
+def resample_affine_auto(vol, world_to_view, out_shape,
+                         out_offset=(0, 0, 0), device=None):
+    """Router on a concrete (3, 4) numpy `world_to_view`: the separable
+    matmul path when the map is axis-aligned, else the gather path.
+    `vol` (numpy or tensor) goes to `device` (default CUDA) as float32."""
+    dev = resolve_device(device)
+    v = torch.as_tensor(np.asarray(vol, np.float32) if not isinstance(
+        vol, torch.Tensor) else vol).to(dev).float()
+    M = np.asarray(world_to_view, np.float64)
+    if is_axis_aligned(M):
+        scale = torch.tensor(np.diag(M[:, :3]), dtype=torch.float32,
+                             device=dev)
+        shift = torch.tensor(
+            M[:, :3] @ np.asarray(out_offset, np.float64) + M[:, 3],
+            dtype=torch.float32, device=dev)
+        return separable_resample(v, scale, shift, tuple(out_shape))
+    return resample_affine(v, torch.tensor(M, dtype=torch.float32,
+                                           device=dev), tuple(out_shape),
+                           torch.tensor(out_offset, dtype=torch.float32))

@@ -1,0 +1,123 @@
+"""Kernels #5 and #6 of the port (spim_registration_tpu_torch/ops/kernels/
+{dog,lowrank_conv}.py) against the reference's Pallas kernels run in
+interpret mode on the CPU (the JAX package's own tests run them so). The
+CUDA kernels against their plain versions are in
+tests/test_torch_isolation.py, which runs on the card without JAX.
+
+Tolerances: DoG atol 1e-5 on unit-scale input (the reference's own
+`tests/test_pallas_dog.py`: f32 sums in another order); the fully fused
+conv nrmse < 1e-5 in f32 (summation order), and in bf16 nrmse < 1e-3 and
+max |diff| <= 2^-7 x max|out| (an intermediate rounded to bf16 may flip by
+one ULP where the two f32 sums differ in their last bit).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spim_registration_tpu.ops.pallas.dog import dog_pallas
+from spim_registration_tpu.ops.pallas.lowrank_conv import (
+    conv_lowrank_folded_zfused as ref_zfused,
+)
+from spim_registration_tpu.ops.separable import (
+    folded_conv_matrices,
+    lowrank_decompose,
+)
+from spim_registration_tpu_torch import convert
+from spim_registration_tpu_torch.ops.kernels import dog as kd
+from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+torch.set_num_threads(2)
+
+
+def _nrmse(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.sqrt(np.mean((a - b) ** 2)) / (b.max() - b.min())
+
+
+@pytest.mark.parametrize("shape,s1,s2,blocks", [
+    ((40, 50, 60), 1.8, 2.26, {}),
+    ((21, 33, 47), (1.2, 1.8, 1.8), (1.5, 2.2, 2.2), {"bz": 8, "by": 16}),
+])
+def test_dog_fused_matches_pallas(shape, s1, s2, blocks):
+    vol = np.random.default_rng(42).normal(size=shape).astype(np.float32)
+    want = np.asarray(dog_pallas(jnp.asarray(vol), s1, s2, interpret=True,
+                                 **blocks))
+    n0 = kd.dog_fused.launches
+    got = kd.dog_fused(torch.from_numpy(vol), s1, s2).numpy()
+    assert kd.dog_fused.launches == n0      # the CPU takes the plain version
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_dog_taps_are_the_reference_kernels():
+    """The kernel's tap table: the 1-D Gaussians of `gaussian_kernel_1d`,
+    zero past each radius, and a sigma the table cannot hold raises."""
+    from spim_registration_tpu.ops.gaussian import gaussian_kernel_1d
+
+    taps, radii = kd.dog_taps((1.2, 1.8, 0.0), 2.26)
+    for s, sig in enumerate(((1.2, 1.8, 0.0), (2.26,) * 3)):
+        for a, sv in enumerate(sig):
+            k = np.asarray(gaussian_kernel_1d(sv))
+            assert radii[s, a] == (len(k) - 1) // 2
+            np.testing.assert_array_equal(taps[s, a, :len(k)], k)
+            assert not taps[s, a, len(k):].any()
+    with pytest.raises(ValueError, match="taps"):
+        kd.dog_taps(11.0, 12.0)
+
+
+def _zfused_case(shape, rank, dtype):
+    rng = np.random.default_rng(0)
+    k = rng.random((7, 9, 5))
+    k /= k.sum()
+    az, ay, ax, _ = lowrank_decompose(k, rank)
+    mats = folded_conv_matrices(az, ay, ax, shape)
+    if dtype == "bfloat16":
+        mats = [np.asarray(jnp.asarray(M, jnp.bfloat16)) for M in mats]
+    vol = rng.random(shape).astype(np.float32)
+    return vol, mats, (az.shape[1] - 1) // 2
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-3)])
+def test_zfused_matches_pallas(dtype, tol):
+    shape = (32, 16, 128)   # the reference kernel needs X % 128 == 0
+    vol, mats, hz = _zfused_case(shape, 4, dtype)
+    want = np.asarray(ref_zfused(jnp.asarray(vol),
+                                 *[jnp.asarray(M) for M in mats], hz=hz,
+                                 tz=8, interpret=True))
+    tm = [convert.tensor_from_numpy(M, "cpu") for M in mats]
+    n0 = lc.zfused.launches
+    got = lc.conv_lowrank_folded_zfused(torch.from_numpy(vol), *tm, hz=hz,
+                                        tz=8).numpy()
+    assert lc.zfused.launches == n0
+    assert got.dtype == np.float32 and got.shape == shape
+    assert _nrmse(got, want) < tol
+    if dtype == "bfloat16":
+        assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+
+
+def test_zfused_rejects_a_z_half_support_below_the_band():
+    """An `hz` that would let the kernel's window drop band columns
+    raises, on the CPU as on the card; the band's own half-support runs."""
+    vol, mats, hz = _zfused_case((20, 12, 24), 2, "float32")
+    tm = [convert.tensor_from_numpy(M, "cpu") for M in mats]
+    v = torch.from_numpy(vol)
+    assert lc.band_radius(tm[0]) == hz
+    with pytest.raises(ValueError, match="half-support"):
+        lc.conv_lowrank_folded_zfused(v, *tm, hz=hz - 1)
+    assert lc.conv_lowrank_folded_zfused(v, *tm, hz=hz).shape == vol.shape
+
+
+def test_band_radius_of_folded_matrices():
+    """The y/x half-supports the wrapper measures are the factor banks'
+    own, mirror folds included."""
+    rng = np.random.default_rng(1)
+    for n, taps in ((16, 9), (37, 7), (5, 9)):
+        bank = rng.standard_normal((3, taps))
+        M = folded_conv_matrices(bank, bank, bank, (n, n, n))[0]
+        got = lc.band_radius(torch.from_numpy(M))
+        assert got <= (taps - 1) // 2
+        i, j = np.nonzero(np.any(M != 0, axis=0))
+        assert got == np.abs(j - i).max()

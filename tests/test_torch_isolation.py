@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from spim_registration_tpu_torch.ops.kernels import build
+from spim_registration_tpu_torch.ops.kernels import dog as kd
 from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 from spim_registration_tpu_torch.ops.kernels import segtopk as st
 
@@ -106,6 +107,70 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
+                "utils.manifest", "ops.integral", "detect.dom", "detect.dog",
+                "ops.resample", "fuse.bounding_box", "fuse.weighted_avg",
+                "pipeline.config", "convert", "ops.kernels.dog",
+                "ops.kernels.lowrank_conv")
+
+_IMPORT_NEW = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["imageio"] = None      # the card's machine has neither
+sys.modules["h5py"] = None
+for n in sys.argv[1:]:
+    importlib.import_module("spim_registration_tpu_torch." + n)
+from spim_registration_tpu_torch import cli
+args = cli.build_parser().parse_args(["detect", "d.xml", "--method", "dom"])
+assert args.device == "cuda" and args.fn is cli.cmd_detect
+assert not [m for m in sys.modules if m.startswith("spim_registration_tpu.")]
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module", _NEW_MODULES)
+def test_cli_path_modules_import_without_jax(module):
+    """Each module of the CLI path (and of kernels #5/#6) imports with jax,
+    imageio and h5py blocked, and the CLI parses its verbs."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_NEW, module],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_cli_path_entry_points_refuse_to_run_without_cuda(monkeypatch,
+                                                          tmp_path):
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core.dataset import (
+        Dataset,
+        ViewDescription,
+    )
+    from spim_registration_tpu_torch.core.imgloaders import memory_loader
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.detect import (
+        detect_beads_dataset,
+        detect_beads_dom,
+    )
+    from spim_registration_tpu_torch.fuse import fuse_dataset
+    from spim_registration_tpu_torch.ops.resample import resample_affine_auto
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.ones((8, 8, 8), np.float32)
+    ds = Dataset(base_path=str(tmp_path),
+                 loader=memory_loader({(0, 0): vol}))
+    ds.add_view(ViewDescription(view_id=(0, 0), size=(8, 8, 8)))
+    np.save(tmp_path / "tp0_setup0.npy", vol)
+    save_dataset(ds, str(tmp_path / "dataset.xml"))
+    for call in (lambda: detect_beads_dataset(ds),
+                 lambda: detect_beads_dom(vol),
+                 lambda: fuse_dataset(ds, [(0, 0)]),
+                 lambda: resample_affine_auto(vol, np.eye(3, 4), (4, 4, 4)),
+                 lambda: cli.main(["detect", str(tmp_path / "dataset.xml")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_kernel_sources_present():
@@ -215,3 +280,63 @@ def test_kernel_wrappers_raise_on_unsupported_input():
                                   dtype=torch.bfloat16),
                    torch.zeros((2, 600, 600), device=dev,
                                dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_dog_kernel_matches_plain_on_cuda():
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.utils.device import set_exact_float32
+
+    set_exact_float32()
+    rng = np.random.default_rng(2)
+    for shape, s1, s2 in (((21, 33, 47), (1.2, 1.8, 1.8), (1.5, 2.2, 2.2)),
+                          ((70, 65, 97), 1.8, 1.8 * 2 ** 0.25),
+                          ((9, 40, 3), (0.0, 1.0, 2.0), (0.5, 1.5, 2.5))):
+        v = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                             ).cuda()
+        n0 = kd.dog_fused.launches
+        got = kd.dog_fused(v, s1, s2)
+        assert kd.dog_fused.launches == n0 + 1
+        want = kd.dog_reference(v, s1, s2)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            v.abs().max())
+    with pytest.raises(ValueError, match="float32"):
+        kd.dog_fused(v.double(), 1.0, 2.0)
+    with pytest.raises(ValueError, match="taps"):
+        kd.dog_fused(v, 11.0, 12.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_zfused_kernel_matches_plain_on_cuda():
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.ops.separable import (
+        conv_lowrank_folded,
+        folded_conv_matrices,
+    )
+
+    rng = np.random.default_rng(3)
+    for shape, R, taps in (((32, 16, 128), 4, (7, 9, 5)),
+                           ((37, 50, 300), 3, (9, 7, 19)),
+                           ((40, 20, 45), 5, (19, 3, 1))):
+        facs = [rng.standard_normal((R, t)) for t in taps]
+        Ms = [torch.from_numpy(M).cuda().to(torch.bfloat16)
+              for M in folded_conv_matrices(*facs, shape)]
+        vol = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+        n0 = lc.zfused.launches
+        got = lc.conv_lowrank_folded_zfused(vol, *Ms, hz=(taps[0] - 1) // 2)
+        assert lc.zfused.launches == n0 + 1
+        want = conv_lowrank_folded(vol, *Ms)
+        d = (got - want).abs()
+        # nrmse catches a fragment-layout fault confined to a few elements
+        nrmse = float(torch.sqrt((d.double() ** 2).mean())
+                      / (want.max() - want.min()))
+        assert nrmse <= 1e-3, (shape, nrmse)
+        assert float(d.max()) <= 2.0 ** -7 * float(want.abs().max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        lc.zfused(vol, *(M.float() for M in Ms), 9, 1, 0)
+    big = torch.zeros((1, 64, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cannot take"):
+        lc.zfused(torch.zeros((64, 64, 64), device="cuda",
+                              dtype=torch.bfloat16), big, big, big, 40, 40, 40)
+    torch.cuda.synchronize()
