@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --zpass-of DIR   # the z pass alone (see below)
 
 Drives the port (`spim_registration_tpu_torch`, never JAX or the JAX
 package) and exits nonzero on any failure:
@@ -19,9 +20,12 @@ package) and exits nonzero on any failure:
    the device's idle share;
 3. kernels vs their plain PyTorch versions at the main path's shapes
    (256^3, the staged bf16 matrices of the fixture PSFs at their real
-   ranks): the z pass banded, dense and at a z-slab offset, and the fused
-   y/x rows pass; error, median time (CUDA events), plain time, one-call
-   library time and the least time the card could take (bound);
+   ranks): the z pass banded, dense and at a z-slab offset, at rank 48
+   (`psf_rank_hard`) and on the pipeline's 208^3 box, and the fused y/x
+   rows pass; error, median time of single calls (CUDA events), plain
+   time, one-call library time, the least time the card could take
+   (bound) and its fraction of the measured time; for the z pass and its
+   library call also the time per call launched back to back;
 4. the detection path at the bench configuration (8 views x 256^3,
    `detect_beads_batch` and `detect_beads`): segtopk launches per batch,
    voxels/s, peaks per view; then segtopk against its plain version,
@@ -50,10 +54,15 @@ package) and exits nonzero on any failure:
 
 Each phase prints one JSON line; then a `kernels` JSON line, the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+
+`--zpass-of DIR` runs only the card phase and the z pass of DIR's
+package (`zpass_alone`), without the result line: to compare two
+checkouts, run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -101,7 +110,9 @@ def sync_wall(fn):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of `fn` over `reps` calls after one warm-up."""
+    """Median CUDA-event time of `fn` over `reps` calls after one warm-up.
+    Each call starts on an idle card, so the host's work in front of the
+    launch counts."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -113,6 +124,27 @@ def cuda_ms(fn, reps: int) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def cuda_ms_pipelined(fn, reps: int) -> float:
+    """Device time per call of `fn` launched back to back, as the main
+    path launches it: CUDA events around five batches of reps // 5 calls
+    (after one warm-up), the median of the mean per call. The host's work
+    overlaps the device's, so this is `cuda_ms` less the host's share."""
+    fn()
+    torch.cuda.synchronize()
+    per = max(1, reps // 5)
+    times = []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(per):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / per)
     return float(np.median(times))
 
 
@@ -239,9 +271,87 @@ def rl_params(backend, n_iter):
         psf_rank_tol=5e-5, psf_rank_hard=48)
 
 
+# The z pass's seeded cases beside the staged main-path entry: (name,
+# rank, n) for an n^3 volume
+ZPASS_SEEDED = (("rank48", 48, 256), ("box208", 22, 208))
+
+
+def seeded_zpass(rng, rank: int, n: int) -> tuple:
+    """The z matrices (bf16, on the card) mirror-folded from seeded 19-tap
+    factors at `rank` for an n^3 volume, and their band windows
+    (half-support 9)."""
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.separable import folded_conv_matrices
+
+    f = rng.standard_normal((rank, 19)) * 0.3
+    mz = torch.from_numpy(folded_conv_matrices(f, f, f, (n, 32, 32))[0])
+    return mz.cuda().to(torch.bfloat16), lc.band_blocks(n, n, 9)
+
+
+def seeded_volume(rng, n: int) -> torch.Tensor:
+    return torch.from_numpy(rng.random((n, n, n), dtype=np.float32)
+                            ).cuda().to(torch.bfloat16)
+
+
+def zpass_times(lc, mz, vm, wins) -> dict:
+    """The z pass banded and dense and one dense bf16 `torch.matmul` on
+    the same inputs, each timed single (`cuda_ms`) and back to back
+    (`cuda_ms_pipelined`); the bound counts Mz's band nonzeros, vm and
+    `a` once each."""
+    P, J = vm.shape[0], vm[0].numel()
+    fns = {"banded": lambda: lc.zpass(mz, vm, wins),
+           "dense": lambda: lc.zpass(mz, vm, None),
+           "library": lambda: torch.matmul(mz, vm.view(P, J))}
+    out = {}
+    for k, fn in fns.items():
+        out[k] = cuda_ms(fn, 20)
+        out[k + "_pipelined"] = cuda_ms_pipelined(fn, 20)
+    nnz = float((mz != 0).sum())
+    out["bytes"] = (nnz + vm.numel() + mz.shape[0] * mz.shape[1] * J) * 2
+    out["ops"] = 2.0 * nnz * J
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
+    out["frac_of_bound"] = out["bound_ms"] / out["banded"]
+    return out
+
+
+def zpass_alone() -> None:
+    """`--zpass-of DIR`: the z pass of DIR's package alone, at rank 22 and
+    48 on 256^3 and rank 22 on 208^3 (`seeded_zpass`, seeded volumes,
+    seed 0): errors of the banded and dense kernel against
+    `zpass_reference` and `zpass_times`. Builds only zpass; compares two
+    checkouts within one call."""
+    from spim_registration_tpu_torch.ops.kernels import build
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+    lc._zpass_lib()
+    emit({"phase": "zpass_build", "ptxas": [
+        ln.strip() for ln in build.build_log("zpass").splitlines()
+        if "registers" in ln or "spill" in ln]})
+    rng = np.random.default_rng(0)
+    bad = []
+    for name, rank, n in (("rank22", 22, 256),) + ZPASS_SEEDED:
+        mz, wins = seeded_zpass(rng, rank, n)
+        vm = seeded_volume(rng, n)
+        want = lc.zpass_reference(mz, vm)
+        errs = {"banded": kernel_error(lc.zpass(mz, vm, wins), want),
+                "dense": kernel_error(lc.zpass(mz, vm, None), want)}
+        del want
+        bad += [f"{name} {k}" for k, e in errs.items() if not e["ok"]]
+        plan = getattr(lc, "zpass_plan", None)
+        emit({"phase": "zpass", "case": name, "rank": rank, "shape": n,
+              "windows": wins, "plan": plan(n, wins) if plan else None,
+              "errors": errs, "times_ms": zpass_times(lc, mz, vm, wins)})
+        del mz, vm
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"zpass disagrees with its plain version: {bad}")
+
+
 def phase_kernels(runner) -> dict:
     """Each kernel against its plain version at the main path's shapes:
-    the highest-rank matrix entry of the staged lowrank runner."""
+    the highest-rank matrix entry of the staged lowrank runner; the z pass
+    also on `ZPASS_SEEDED` (rank 48 on the RL estimate, rank 22 on a
+    seeded 208^3 volume)."""
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 
     entries = [e for e in runner.k1_ffts + runner.k2_ffts if "mat" in e]
@@ -261,44 +371,49 @@ def phase_kernels(runner) -> dict:
         got = lc.zpass(mz, vm, w)
         cases[name] = kernel_error(got, lc.zpass_reference(mz, vm))
         cases[name]["windows"] = None if w is None else [list(x) for x in w]
+    zp = {"main": zpass_times(lc, Mz, vm, wins)}
+    plans = {"main": list(lc.zpass_plan(P, wins))}
+    rng = np.random.default_rng(5)
+    for name, rank, n in ZPASS_SEEDED:
+        mz, w = seeded_zpass(rng, rank, n)
+        v = vm if n == Z else seeded_volume(rng, n)
+        cases[name] = kernel_error(lc.zpass(mz, v, w),
+                                   lc.zpass_reference(mz, v))
+        cases[name]["windows"] = [list(x) for x in w]
+        plans[name] = list(lc.zpass_plan(n, w))
+        zp[name] = zpass_times(lc, mz, v, w)
+        del mz, v
     a = lc.zpass(Mz, vm, wins)
     cases["sl_rows"] = kernel_error(lc.sl_rows(a, My, Mx),
                                     lc.fused_sl_reference(a, My, Mx))
     torch.cuda.synchronize()
 
-    isz = 2
     nnz = lambda M: float((M != 0).sum())              # noqa: E731
-    zp_bytes = (Mz.numel() + vm.numel() + R * N * Y * X) * isz
-    zp_ops = 2.0 * nnz(Mz) * Y * X
-    sl_bytes = (a.numel() + My.numel() + Mx.numel()) * isz \
+    sl_bytes = (a.numel() + My.numel() + Mx.numel()) * 2 \
         + Z * My.shape[1] * Mx.shape[1] * 4
     sl_ops = 2.0 * Z * (nnz(My) * X + My.shape[1] * nnz(Mx)) \
         + float(R) * Z * My.shape[1] * Mx.shape[1]
-    zp_bound, zp_by = bound_ms(zp_bytes, zp_ops)
     sl_bound, sl_by = bound_ms(sl_bytes, sl_ops)
     times = {
-        "zpass_banded": cuda_ms(lambda: lc.zpass(Mz, vm, wins), 20),
-        "zpass_dense": cuda_ms(lambda: lc.zpass(Mz, vm, None), 20),
         "zpass_plain": cuda_ms(lambda: lc.zpass_reference(Mz, vm), 5),
-        "zpass_library": cuda_ms(
-            lambda: torch.matmul(Mz, vm.view(P, Y * X)), 20),
         "sl_rows": cuda_ms(lambda: lc.sl_rows(a, My, Mx), 20),
         "sl_rows_plain": cuda_ms(lambda: lc.fused_sl_reference(a, My, Mx),
                                  5),
     }
     result = {"phase": "kernels", "rank": R, "shape": [Z, Y, X],
               "rad_z": rad_z, "cases": cases, "times_ms": times,
-              "zpass_bytes": zp_bytes, "zpass_ops": zp_ops,
+              "zpass": zp, "zpass_plan": plans,
               "sl_rows_bytes": sl_bytes, "sl_rows_ops": sl_ops,
               "sl_rows_dense_ops": 2.0 * R * Z * My.shape[1] * X
               * (Y + Mx.shape[1]),
-              "bound_ms": {"zpass": zp_bound, "sl_rows": sl_bound}}
+              "sl_rows_bound_ms": sl_bound}
     emit(result)
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
-    zp_err = max(cases[k]["max_abs_err"] for k in ("banded", "dense", "slab"))
+    zp_err = max(cases[k]["max_abs_err"] for k in cases if k != "sl_rows")
+    m = zp["main"]
     return {
         "zfused": phase_zfused(entry, runner.psi0),
         "zpass": {"name": "zpass", "route": "cuda",
@@ -306,10 +421,13 @@ def phase_kernels(runner) -> dict:
                   "replaces": "spim_registration_tpu/ops/pallas/"
                               "lowrank_conv.py:200 (_zpass_banded_kernel) "
                               "and :188 (_zpass_kernel)",
-                  "max_abs_err": zp_err, "ms": times["zpass_banded"],
-                  "dense_ms": times["zpass_dense"],
-                  "plain_ms": times["zpass_plain"], "bound_ms": zp_bound,
-                  "bound_by": zp_by, "library_ms": times["zpass_library"]},
+                  "max_abs_err": zp_err, "ms": m["banded"],
+                  "ms_pipelined": m["banded_pipelined"],
+                  "dense_ms": m["dense"], "plain_ms": times["zpass_plain"],
+                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                  "library_ms": m["library"],
+                  "library_ms_pipelined": m["library_pipelined"],
+                  "frac_of_bound": m["frac_of_bound"]},
         "sl_rows": {"name": "sl_rows", "route": "cuda",
                     "source": "spim_registration_tpu_torch/csrc/sl_rows.cu",
                     "replaces": "spim_registration_tpu/ops/pallas/"
@@ -318,7 +436,8 @@ def phase_kernels(runner) -> dict:
                     "ms": times["sl_rows"],
                     "plain_ms": times["sl_rows_plain"],
                     "bound_ms": sl_bound, "bound_by": sl_by,
-                    "library_ms": None},
+                    "library_ms": None,
+                    "frac_of_bound": sl_bound / times["sl_rows"]},
     }
 
 
@@ -1048,12 +1167,24 @@ def phase_small_vs_cpu() -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--zpass-of", metavar="DIR",
+                    help="time only the z pass of DIR's package (`.` for "
+                         "this checkout; another one, such as an older "
+                         "commit unpacked beside it, for a comparison "
+                         "within one call) and print no result line")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.zpass_of or ROOT).resolve()))
     import spim_registration_tpu_torch  # noqa: F401  (fails without the repo)
+
+    if args.zpass_of:
+        phase_card()
+        zpass_alone()
+        return 0
 
     # the CP-factor cache stays inside the checkout
     os.environ.setdefault("SPIM_FACTOR_CACHE_DIR",

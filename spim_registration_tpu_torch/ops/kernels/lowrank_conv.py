@@ -6,8 +6,9 @@ folded-matrix passes (`ops/separable.py`); here they run as two kernels:
 
 - `zpass` (csrc/zpass.cu): a[r, n, y, x] = sum_p Mz[r, n, p] vm[p, y, x]
   over each 64-row tile's band window (`band_blocks`), f32 accumulation,
-  one rounding to the matrix dtype. Replaces `_zpass_banded_kernel` and
-  `_zpass_kernel`.
+  one rounding to the matrix dtype; the rank loop inside the block, the
+  volume window read once for all ranks (`zpass_plan` sizes its tile).
+  Replaces `_zpass_banded_kernel` and `_zpass_kernel`.
 - `sl_rows` (csrc/sl_rows.cu): o[z] = sum_r round(My[r] @ a[r, z]) @ Mx[r]^T,
   the rank loop inside the block, `o` written once in f32. Replaces
   `_sl_rows_kernel`.
@@ -54,6 +55,32 @@ _A_SLAB_BYTES = 4 << 30
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
+# The bf16 z pass's (column tile, column tiles a block, shared-memory
+# limit) choices, in the order `zpass_plan` tries them. Column tiles are
+# template instances of csrc/zpass.cu; a block may take a block's maximum
+# on sm_90, or at most what still lets two blocks share an SM (half the
+# SM's 228 KB, less the 1 KB the runtime keeps a block).
+_SMEM_MAX = 232448
+_SMEM_TWO_PER_SM = 233472 // 2 - 1024
+_ZPASS_SHAPES = ((128, 2, _SMEM_TWO_PER_SM), (128, 1, _SMEM_TWO_PER_SM),
+                 (128, 2, _SMEM_MAX), (128, 1, _SMEM_MAX), (64, 1, _SMEM_MAX))
+
+
+def _zpass_smem(tn: int, kpad: int, ct: int) -> int:
+    """Shared-memory bytes of a bf16 z-pass block (csrc/zpass.cu
+    `smem_bytes`): 1 KB of alignment, two 64 x tn output tiles, ct
+    kpad x tn volume windows and two 64 x kpad matrix tiles."""
+    tm = ZPASS_TILE_ROWS
+    return 1024 + 2 * (2 * tm * tn + ct * kpad * tn + 2 * tm * kpad)
+
+
+# The widest window (in columns of P, a multiple of the MMA depth) that
+# some shape of _ZPASS_SHAPES takes within its limit.
+ZPASS_MAX_WINDOW = max(
+    (limit - _zpass_smem(tn, 0, ct))
+    // (_zpass_smem(tn, 1, ct) - _zpass_smem(tn, 0, ct))
+    // _MMA_DEPTH * _MMA_DEPTH for tn, ct, limit in _ZPASS_SHAPES)
+
 
 def band_blocks(N: int, P: int, rad: int, off: int = 0):
     """Per-tile contraction windows of a band matrix for the CUDA z pass.
@@ -74,6 +101,23 @@ def band_blocks(N: int, P: int, rad: int, off: int = 0):
     if all(k0 == 0 and k1 == P for k0, k1 in wins):
         return None
     return tuple(wins)
+
+
+def zpass_plan(P: int, windows=None) -> tuple:
+    """The bf16 z-pass launch for a window table: (tn, kpad, ct, smem
+    bytes). kpad is the widest window rounded up to the MMA depth; (tn, ct)
+    the first of `_ZPASS_SHAPES` whose block fits its limit: two column
+    tiles of 128 a block, two blocks an SM, where the window allows.
+    `windows` None means the dense [0, P). Raises ValueError beyond
+    ZPASS_MAX_WINDOW columns."""
+    widths = [P] if windows is None else [k1 - k0 for k0, k1 in windows]
+    kpad = max(_MMA_DEPTH, -(-max(widths) // _MMA_DEPTH) * _MMA_DEPTH)
+    for tn, ct, limit in _ZPASS_SHAPES:
+        smem = _zpass_smem(tn, kpad, ct)
+        if smem <= limit:
+            return tn, kpad, ct, smem
+    raise ValueError(f"zpass: the kernel cannot take a window of "
+                     f"{max(widths)} columns (at most {ZPASS_MAX_WINDOW})")
 
 
 def zpass_reference(Mz: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
@@ -102,13 +146,22 @@ def _zpass_lib():
     lib = build.load("zpass")
     lib.spim_zpass_tile_rows.argtypes = []
     lib.spim_zpass_tile_rows.restype = ctypes.c_int
+    lib.spim_zpass_smem.argtypes = [ctypes.c_int] * 3
+    lib.spim_zpass_smem.restype = ctypes.c_int
     lib.spim_zpass.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.spim_zpass.restype = ctypes.c_int
     if lib.spim_zpass_tile_rows() != ZPASS_TILE_ROWS:
         raise RuntimeError("csrc/zpass.cu tile rows differ from "
                            "ZPASS_TILE_ROWS")
+    for tn, ct, _ in _ZPASS_SHAPES:
+        for kpad in (16, 96, ZPASS_MAX_WINDOW):
+            want = _zpass_smem(tn, kpad, ct)
+            if lib.spim_zpass_smem(tn, kpad, ct) != (
+                    want if want <= _SMEM_MAX else -1):
+                raise RuntimeError("csrc/zpass.cu shared memory differs "
+                                   "from zpass_plan")
     return lib
 
 
@@ -124,8 +177,29 @@ def _sl_rows_lib():
 
 
 @functools.lru_cache(maxsize=256)
-def _window_table(wins: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(wins, dtype=torch.int32, device=device).reshape(-1)
+def _zpass_setup(windows, N: int, P: int, bf16: bool,
+                 device: torch.device) -> tuple:
+    """One window table checked and on `device`, with the bf16 plan
+    (tn, kpad, ct; zeros for float32): work shared by every launch on the
+    same table."""
+    n_tiles = -(-N // ZPASS_TILE_ROWS)
+    if windows is None:
+        windows = ((0, P),) * n_tiles
+    windows = tuple((int(k0), int(k1)) for k0, k1 in windows)
+    if len(windows) != n_tiles or any(
+            k0 % _MMA_DEPTH or not 0 <= k0 <= k1 <= P for k0, k1 in windows):
+        raise ValueError(f"zpass: bad window table for N={N}, P={P}")
+    plan = zpass_plan(P, windows)[:3] if bf16 else (0, 0, 0)
+    table = torch.tensor(windows, dtype=torch.int32, device=device)
+    return (table.reshape(-1),) + plan
+
+
+def zpass_tma_store(out: torch.Tensor) -> bool:
+    """Whether the bf16 z pass writes `out` (R, N, Y, X) through a TMA
+    tensor map: rows of a multiple of 16 bytes from a 16-byte aligned
+    base. Other outputs take per-thread stores; a map that should exist
+    but cannot be built raises."""
+    return out.shape[2] * out.shape[3] % 8 == 0 and out.data_ptr() % 16 == 0
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
@@ -156,7 +230,10 @@ def _raise_on(err: int, name: str) -> None:
 def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     """Stacked z pass a[r, n] = Mz[r, n, :] @ vm, (R, N, Y, X) in the matrix
     dtype. `windows`: per-tile (k0, k1) from `band_blocks`, or None for
-    the dense contraction. CPU tensors take `zpass_reference`."""
+    the dense contraction. CPU tensors take `zpass_reference`. The bf16
+    kernel takes any R, N, P and Y * X with windows of at most
+    ZPASS_MAX_WINDOW (560) columns, and raises ValueError beyond
+    (`zpass_plan`); the f32 kernel takes R * N <= 65535."""
     if Mz.device.type == "cpu" and vm.device.type == "cpu":
         return zpass_reference(Mz, vm)
     code = _check_cuda("zpass", Mz, vm)
@@ -164,21 +241,18 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     P2, Y, X = vm.shape
     if P2 != P:
         raise ValueError(f"zpass: Mz {tuple(Mz.shape)} vs vm {tuple(vm.shape)}")
-    n_tiles = -(-N // ZPASS_TILE_ROWS)
-    if windows is None:
-        windows = ((0, P),) * n_tiles
-    windows = tuple((int(k0), int(k1)) for k0, k1 in windows)
-    if len(windows) != n_tiles or any(
-            k0 % _MMA_DEPTH or not 0 <= k0 <= k1 <= P for k0, k1 in windows):
-        raise ValueError(f"zpass: bad window table for N={N}, P={P}")
-    rows = R * (n_tiles if code == 0 else N)
-    if rows > 65535:
-        raise ValueError(f"zpass: R x rows = {rows} exceeds the grid limit")
-    table = _window_table(windows, Mz.device)
+    if windows is not None and not isinstance(windows, tuple):
+        windows = tuple(tuple(w) for w in windows)
+    table, tn, kpad, ct = _zpass_setup(windows, N, P, code == 0, Mz.device)
+    if code != 0 and R * N > 65535:
+        raise ValueError(f"zpass: R x N = {R * N} exceeds the grid "
+                         f"limit of the float32 kernel")
     out = torch.empty((R, N, Y, X), dtype=Mz.dtype, device=Mz.device)
     err = _zpass_lib().spim_zpass(
         Mz.data_ptr(), vm.data_ptr(), out.data_ptr(), table.data_ptr(),
-        R, N, P, Y * X, code, torch.cuda.current_stream(Mz.device).cuda_stream)
+        R, N, P, Y * X, code, tn, kpad, ct, int(zpass_tma_store(out)),
+        # the current stream's handle, without building a Stream object
+        torch._C._cuda_getCurrentRawStream(Mz.get_device()))
     _raise_on(err, "zpass")
     zpass.launches += 1
     return out

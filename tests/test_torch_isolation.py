@@ -189,7 +189,11 @@ def _cuda_or_skip():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kernels_match_plain_on_cuda(dtype):
     """zpass (banded, dense, slab offset) and sl_rows on ragged shapes,
-    and the fused conv against the plain chain, on the card."""
+    and the fused conv against the plain chain, on the card; then zpass
+    alone at rank 1 and 48, ragged N, J % 8 != 0, dense windows at P = 300
+    (rows not 16-byte aligned) and P = 512 (the 64-column instance), the
+    main path's y * x through the TMA store, and the raise on a window no
+    instance takes."""
     _cuda_or_skip()
     from spim_registration_tpu_torch.ops.separable import (
         conv_lowrank_folded,
@@ -203,8 +207,14 @@ def test_kernels_match_plain_on_cuda(dtype):
 
     def close(got, want, rel):
         g, w = got.float(), want.float()
-        err = float((g - w).abs().max())
+        d = (g - w).abs()
+        err = float(d.max())
         assert err <= rel * float(w.abs().max()) + 1e-30, err
+        # nrmse catches a fragment-layout or ring fault confined to a few
+        # elements
+        nrmse = float(torch.sqrt((d.double() ** 2).mean())
+                      / (w.max() - w.min()))
+        assert nrmse <= 1e-3, nrmse
 
     # one bf16 ULP of the output's scale (both sides round an f32 sum once)
     rel = 2.0 ** -7 if dt == torch.bfloat16 else 1e-5
@@ -231,6 +241,41 @@ def test_kernels_match_plain_on_cuda(dtype):
         got = lc.conv_lowrank_folded_fused(vol, Mz, My, Mx, rad_z=rad)
         close(got, conv_lowrank_folded(vol, Mz, My, Mx),
               2.0 ** -6 if dt == torch.bfloat16 else 1e-5)
+    # (R, Z, Y, X, taps or None for the dense window, first slab row)
+    for (R, Z, Y, X, taps, s0) in ((1, 128, 16, 64, 19, 0),
+                                   (48, 256, 8, 64, 19, 0),
+                                   (4, 100, 9, 24, 7, 0),
+                                   (2, 70, 5, 7, 9, 0),
+                                   (2, 300, 4, 40, None, 0),
+                                   (1, 512, 2, 64, None, 0),
+                                   (3, 256, 6, 33, 19, 96)):
+        az = rng.standard_normal((R, taps or 19))
+        Mz = torch.from_numpy(folded_conv_matrices(az, az, az, (Z, 32, 32))[0]
+                              if taps else rng.standard_normal((R, Z, Z))
+                              ).to(dev).to(dt)[:, s0:].contiguous()
+        vm = torch.from_numpy(rng.standard_normal((Z, Y, X))
+                              .astype(np.float32)).to(dev).to(dt)
+        wins = (lc.band_blocks(Z - s0, Z, (taps - 1) // 2, off=s0)
+                if taps else None)
+        n0 = lc.zpass.launches
+        close(lc.zpass(Mz, vm, wins), lc.zpass_reference(Mz, vm), rel)
+        assert lc.zpass.launches == n0 + 1, (R, Z, Y, X)
+    if dt == torch.bfloat16:
+        # the main path's y * x = 256^2 leaves through the TMA tensor map
+        # (a map that cannot be built raises); J % 8 != 0 through threads
+        az = rng.standard_normal((2, 19))
+        Mz = torch.from_numpy(folded_conv_matrices(az, az, az, (256, 32, 32))
+                              [0]).to(dev).to(dt)
+        vm = torch.from_numpy(rng.random((256, 256, 256), dtype=np.float32)
+                              ).to(dev).to(dt)
+        a = lc.zpass(Mz, vm, lc.band_blocks(256, 256, 9))
+        assert lc.zpass_tma_store(a)
+        close(a, lc.zpass_reference(Mz, vm), rel)
+        assert not lc.zpass_tma_store(torch.empty((2, 70, 5, 7), device=dev,
+                                                  dtype=dt))
+        Mz = torch.zeros((1, 64, 600), device=dev, dtype=dt)
+        with pytest.raises(ValueError, match="cannot take"):
+            lc.zpass(Mz, torch.zeros((600, 2, 8), device=dev, dtype=dt))
     torch.cuda.synchronize()
 
 

@@ -146,6 +146,70 @@ def test_band_table_dense_when_window_covers_all():
     assert lc.band_blocks(256, 256, 9) is not None
 
 
+@pytest.mark.parametrize("P,windows,want", [
+    # the RL main path's 256^3 band table (half-support 9): two 128-column
+    # tiles a block, two blocks an SM
+    (256, lc.band_blocks(256, 256, 9), (128, 96, 2, 107520)),
+    # the pipeline's 208^3 box and a z-slab of the main path
+    (208, lc.band_blocks(208, 208, 9), (128, 96, 2, 107520)),
+    (256, lc.band_blocks(128, 256, 9, off=128), (128, 96, 2, 107520)),
+    # dense [0, P) tables: one block an SM, then one column tile, then TN 64
+    (256, None, (128, 256, 2, 230400)),
+    (300, None, (128, 304, 1, 189440)),
+    (512, None, (64, 512, 1, 214016)),
+    # the widest window any instance takes
+    (lc.ZPASS_MAX_WINDOW, None, (64, 560, 1, 232448)),
+    (2000, ((0, 0), (1024, 1584)), (64, 560, 1, 232448)),
+    # a narrow table still pads to the MMA depth
+    (40, ((0, 8),), (128, 16, 2, 46080)),
+])
+def test_zpass_plan(P, windows, want):
+    """The bf16 z pass's launch plan (csrc/zpass.cu instance, column tiles
+    a block, shared memory): the widest window padded to 16, the first
+    shape that fits two blocks an SM, else one, within a block's 227 KB."""
+    tn, kpad, ct, smem = lc.zpass_plan(P, windows)
+    assert (tn, kpad, ct, smem) == want
+    assert smem == lc._zpass_smem(tn, kpad, ct) <= lc._SMEM_MAX
+    widths = [P] if windows is None else [k1 - k0 for k0, k1 in windows]
+    assert kpad % 16 == 0 and max(widths) <= kpad < max(widths) + 16 or \
+        max(widths) == 0
+
+
+@pytest.mark.parametrize("P,windows", [
+    (lc.ZPASS_MAX_WINDOW + 1, None),
+    (1024, None),
+    (2000, ((0, 576), (64, 128))),
+])
+def test_zpass_plan_raises_beyond_widest_window(P, windows):
+    with pytest.raises(ValueError, match="cannot take"):
+        lc.zpass_plan(P, windows)
+
+
+def test_zpass_max_window_is_the_widest_planned():
+    """ZPASS_MAX_WINDOW is derived from the instance table: planned at
+    exactly the block limit, one MMA depth more raises."""
+    tn, kpad, ct, smem = lc.zpass_plan(lc.ZPASS_MAX_WINDOW)
+    assert kpad == lc.ZPASS_MAX_WINDOW == 560
+    assert smem + lc._zpass_smem(tn, 16, ct) - lc._zpass_smem(tn, 0, ct) \
+        > lc._SMEM_MAX
+    with pytest.raises(ValueError, match="cannot take"):
+        lc.zpass_plan(lc.ZPASS_MAX_WINDOW + 16)
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 4, 16, 16), 0, True),     # y * x a multiple of 8, aligned base
+    ((2, 4, 5, 7), 0, False),      # rows of 70 bytes
+    ((1, 2, 4, 8), 1, False),      # base 2 bytes past an aligned address
+])
+def test_zpass_tma_store(shape, offset, want):
+    """The bf16 z pass stores through a TMA tensor map only where one can
+    be built; the main path's outputs are such (y * x = 256^2)."""
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    assert lc.zpass_tma_store(buf[offset:offset + n].view(shape)) is want
+
+
 def test_zslab_path_matches_single_shot(rng, monkeypatch):
     """The z-slab path (the `a` intermediate capped) equals the one-shot
     conv, ragged last slab included, and both equal the plain chain and
