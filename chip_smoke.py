@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --zpass-of DIR   # the z pass alone (see below)
+    python3 chip_smoke.py --sl-rows-of DIR # the rows pass alone
 
 Drives the port (`spim_registration_tpu_torch`, never JAX or the JAX
 package) and exits nonzero on any failure:
@@ -22,10 +23,13 @@ package) and exits nonzero on any failure:
    (256^3, the staged bf16 matrices of the fixture PSFs at their real
    ranks): the z pass banded, dense and at a z-slab offset, at rank 48
    (`psf_rank_hard`) and on the pipeline's 208^3 box, and the fused y/x
-   rows pass; error, median time of single calls (CUDA events), plain
-   time, one-call library time, the least time the card could take
-   (bound) and its fraction of the measured time; for the z pass and its
-   library call also the time per call launched back to back;
+   rows pass banded (the main path's half-supports) and dense, on the
+   208^3 box and at X = 600; error, median time of single calls (CUDA
+   events), plain time, library time (for the rows pass a chain of two
+   cuBLAS products and a sum), the least time the card could take
+   (bound) and its fraction of the measured time; for the z pass, the
+   rows pass and their library calls also the time per call launched
+   back to back;
 4. the detection path at the bench configuration (8 views x 256^3,
    `detect_beads_batch` and `detect_beads`): segtopk launches per batch,
    voxels/s, peaks per view; then segtopk against its plain version,
@@ -56,13 +60,15 @@ Each phase prints one JSON line; then a `kernels` JSON line, the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 `--zpass-of DIR` runs only the card phase and the z pass of DIR's
-package (`zpass_alone`), without the result line: to compare two
+package (`zpass_alone`), `--sl-rows-of DIR` the rows pass of DIR's
+package (`sl_rows_alone`), without the result line: to compare two
 checkouts, run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -347,17 +353,139 @@ def zpass_alone() -> None:
         raise AssertionError(f"zpass disagrees with its plain version: {bad}")
 
 
+# The rows pass's seeded cases: (name, rank, (Z, Y, X), whether the dense
+# window is timed too); half-support 9 on y and x
+SL_ROWS_SEEDED = (("rank22", 22, (256, 256, 256), True),
+                  ("box208", 22, (208, 208, 208), True),
+                  ("x600", 22, (32, 256, 600), True))
+
+
+def seeded_sl_rows(seed: int, rank: int, shape) -> tuple:
+    """A seeded z-pass output `a` (R, Z, Y, X) and the y and x matrices
+    mirror-folded from seeded 19-tap factors (half-support 9), bf16 on the
+    card."""
+    from spim_registration_tpu_torch.ops.separable import folded_conv_matrices
+
+    Z, Y, X = shape
+    f = np.random.default_rng(seed).standard_normal((rank, 19)) * 0.3
+    _, my, mx = folded_conv_matrices(f, f, f, (Y, Y, X))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((rank, Z, Y, X), generator=g, device="cuda")
+    return (a.to(torch.bfloat16),) + tuple(
+        torch.from_numpy(M).cuda().to(torch.bfloat16) for M in (my, mx))
+
+
+def sl_rows_chain(a, My, Mx):
+    """The rows pass as one chain of PyTorch calls, a time yardstick only:
+    two batched cuBLAS bf16 products (the x product is rounded to bf16 as
+    well, which the kernel does not do) and a sum over ranks in f32."""
+    b = torch.matmul(My[:, None], a)
+    c = torch.matmul(b, Mx.transpose(1, 2)[:, None])
+    return c.sum(dim=0, dtype=torch.float32)
+
+
+def sl_rows_banded(lc):
+    """`lc.sl_rows` with half-supports, or its dense form where the
+    package's `sl_rows` takes none (a checkout before band windows)."""
+    if "rad_y" in inspect.signature(lc.sl_rows).parameters:
+        return lc.sl_rows
+    return lambda a, My, Mx, rad_y=None, rad_x=None: lc.sl_rows(a, My, Mx)
+
+
+def sl_rows_times(lc, a, My, Mx, rads, dense: bool, reps: int = 20) -> dict:
+    """The rows pass banded (`rads` = (rad_y, rad_x)), dense where `dense`,
+    and `sl_rows_chain` on the same inputs, each timed single (`cuda_ms`)
+    and back to back (`cuda_ms_pipelined`); the bound counts `a` once,
+    My's and Mx's band nonzeros once, `o` once, and the band's
+    products."""
+    banded = sl_rows_banded(lc)
+    fns = {"banded": lambda: banded(a, My, Mx, *rads),
+           "library": lambda: sl_rows_chain(a, My, Mx)}
+    if dense:
+        fns["dense"] = lambda: lc.sl_rows(a, My, Mx)
+    out = {}
+    for k, fn in fns.items():
+        out[k] = cuda_ms(fn, reps)
+        out[k + "_pipelined"] = cuda_ms_pipelined(fn, reps)
+    R, Z, Y, X = a.shape
+    Yo, Xo = My.shape[1], Mx.shape[1]
+    nnz = lambda M: float((M != 0).sum())              # noqa: E731
+    out["bytes"] = (a.numel() + nnz(My) + nnz(Mx)) * 2 + Z * Yo * Xo * 4
+    out["ops"] = 2.0 * Z * (nnz(My) * X + Yo * nnz(Mx)) \
+        + float(R) * Z * Yo * Xo
+    out["dense_ops"] = 2.0 * R * Z * Yo * X * (Y + Xo)
+    out["bound_ms"], out["bound_by"] = bound_ms(out["bytes"], out["ops"])
+    out["frac_of_bound"] = out["bound_ms"] / out["banded"]
+    return out
+
+
+def sl_rows_case(lc, a, My, Mx, rads, dense: bool) -> dict:
+    """One rows-pass case: errors of the kernel banded (`rads` = (rad_y,
+    rad_x)) and, where `dense`, dense against `fused_sl_reference`, both
+    plans (None in a checkout before band windows) and `sl_rows_times`."""
+    banded = sl_rows_banded(lc)
+    new = banded is lc.sl_rows
+    want = lc.fused_sl_reference(a, My, Mx)
+    errs = {"banded": kernel_error(banded(a, My, Mx, *rads), want)}
+    if dense:
+        errs["dense"] = kernel_error(lc.sl_rows(a, My, Mx), want)
+    del want
+    Y, X = a.shape[2:]
+    Yo, Xo = My.shape[1], Mx.shape[1]
+    plans = None
+    if new:
+        bb = lc.band_blocks
+        plans = {"banded": list(lc.sl_rows_plan(Y, X, Yo, Xo,
+                                                bb(Yo, Y, rads[0]),
+                                                bb(Xo, X, rads[1]))),
+                 "dense": list(lc.sl_rows_plan(Y, X, Yo, Xo))}
+    return {"rad": list(rads) if new else None, "plan": plans,
+            "errors": errs,
+            "times_ms": sl_rows_times(lc, a, My, Mx, rads, dense)}
+
+
+def sl_rows_alone() -> None:
+    """`--sl-rows-of DIR`: the rows pass of DIR's package alone on
+    `SL_ROWS_SEEDED` (X = 600 only where the package's `sl_rows` takes
+    half-supports), each through `sl_rows_case`. Builds only sl_rows;
+    compares two checkouts within one call."""
+    from spim_registration_tpu_torch.ops.kernels import build
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+    lc._sl_rows_lib()
+    emit({"phase": "sl_rows_build", "ptxas": [
+        ln.strip() for ln in build.build_log("sl_rows").splitlines()
+        if "registers" in ln or "spill" in ln]})
+    new = sl_rows_banded(lc) is lc.sl_rows
+    bad = []
+    for seed, (name, rank, shape, dense) in enumerate(SL_ROWS_SEEDED):
+        if shape[2] > 512 and not new:
+            continue
+        a, My, Mx = seeded_sl_rows(seed, rank, shape)
+        case = sl_rows_case(lc, a, My, Mx, (9, 9), dense)
+        bad += [f"{name} {k}" for k, e in case["errors"].items()
+                if not e["ok"]]
+        emit({"phase": "sl_rows", "case": name, "rank": rank,
+              "shape": list(shape), **case})
+        del a, My, Mx
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"sl_rows disagrees with its plain version: "
+                             f"{bad}")
+
+
 def phase_kernels(runner) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     the highest-rank matrix entry of the staged lowrank runner; the z pass
     also on `ZPASS_SEEDED` (rank 48 on the RL estimate, rank 22 on a
-    seeded 208^3 volume)."""
+    seeded 208^3 volume), the rows pass (`sl_rows_case`) also on the
+    seeded 208^3 box and X = 600 of `SL_ROWS_SEEDED`."""
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 
     entries = [e for e in runner.k1_ffts + runner.k2_ffts if "mat" in e]
     entry = max(entries, key=lambda e: e["mat"][0].shape[1])
     Mz, My, Mx = (M[0] for M in entry["mat"])
-    rad_z = entry["rad"][0]
+    rad_z, rad_y, rad_x = entry["rad"]
     R, N, P = Mz.shape
     vm = runner.psi0.to(torch.bfloat16).contiguous()
     Z, Y, X = vm.shape
@@ -384,36 +512,42 @@ def phase_kernels(runner) -> dict:
         zp[name] = zpass_times(lc, mz, v, w)
         del mz, v
     a = lc.zpass(Mz, vm, wins)
-    cases["sl_rows"] = kernel_error(lc.sl_rows(a, My, Mx),
-                                    lc.fused_sl_reference(a, My, Mx))
+    sl = {"main": sl_rows_case(lc, a, My, Mx, (rad_y, rad_x), True)}
+    for seed, (name, rank, shape, dense) in enumerate(SL_ROWS_SEEDED[1:], 1):
+        sa, smy, smx = seeded_sl_rows(seed, rank, shape)
+        sl[name] = sl_rows_case(lc, sa, smy, smx, (9, 9), dense)
+        del sa, smy, smx
+        torch.cuda.empty_cache()
+    for name, case in sl.items():
+        for form, err in case.pop("errors").items():
+            cases["sl_rows" + ("" if name == "main" else f"_{name}")
+                  + ("" if form == "banded" else "_dense")] = err
     torch.cuda.synchronize()
 
-    nnz = lambda M: float((M != 0).sum())              # noqa: E731
-    sl_bytes = (a.numel() + My.numel() + Mx.numel()) * 2 \
-        + Z * My.shape[1] * Mx.shape[1] * 4
-    sl_ops = 2.0 * Z * (nnz(My) * X + My.shape[1] * nnz(Mx)) \
-        + float(R) * Z * My.shape[1] * Mx.shape[1]
-    sl_bound, sl_by = bound_ms(sl_bytes, sl_ops)
     times = {
         "zpass_plain": cuda_ms(lambda: lc.zpass_reference(Mz, vm), 5),
-        "sl_rows": cuda_ms(lambda: lc.sl_rows(a, My, Mx), 20),
         "sl_rows_plain": cuda_ms(lambda: lc.fused_sl_reference(a, My, Mx),
                                  5),
     }
     result = {"phase": "kernels", "rank": R, "shape": [Z, Y, X],
-              "rad_z": rad_z, "cases": cases, "times_ms": times,
-              "zpass": zp, "zpass_plan": plans,
-              "sl_rows_bytes": sl_bytes, "sl_rows_ops": sl_ops,
-              "sl_rows_dense_ops": 2.0 * R * Z * My.shape[1] * X
-              * (Y + Mx.shape[1]),
-              "sl_rows_bound_ms": sl_bound}
+              "rad": [rad_z, rad_y, rad_x], "cases": cases,
+              "times_ms": times, "zpass": zp, "zpass_plan": plans,
+              "sl_rows": sl,
+              "sl_rows_library": "torch.matmul(My[:, None], a), then "
+                                 "torch.matmul(., Mx^T[:, None]), then an "
+                                 "f32 sum over r: three calls that also "
+                                 "round the x product to bf16"}
     emit(result)
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{bad}")
-    zp_err = max(cases[k]["max_abs_err"] for k in cases if k != "sl_rows")
+    zp_err = max(cases[k]["max_abs_err"] for k in cases
+                 if not k.startswith("sl_rows"))
+    sl_err = max(cases[k]["max_abs_err"] for k in cases
+                 if k.startswith("sl_rows"))
     m = zp["main"]
+    s = sl["main"]["times_ms"]
     return {
         "zfused": phase_zfused(entry, runner.psi0),
         "zpass": {"name": "zpass", "route": "cuda",
@@ -432,12 +566,14 @@ def phase_kernels(runner) -> dict:
                     "source": "spim_registration_tpu_torch/csrc/sl_rows.cu",
                     "replaces": "spim_registration_tpu/ops/pallas/"
                                 "lowrank_conv.py:65 (_sl_rows_kernel)",
-                    "max_abs_err": cases["sl_rows"]["max_abs_err"],
-                    "ms": times["sl_rows"],
+                    "max_abs_err": sl_err, "ms": s["banded"],
+                    "ms_pipelined": s["banded_pipelined"],
+                    "dense_ms": s["dense"],
                     "plain_ms": times["sl_rows_plain"],
-                    "bound_ms": sl_bound, "bound_by": sl_by,
-                    "library_ms": None,
-                    "frac_of_bound": sl_bound / times["sl_rows"]},
+                    "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
+                    "library_ms": s["library"],
+                    "library_ms_pipelined": s["library_pipelined"],
+                    "frac_of_bound": s["frac_of_bound"]},
     }
 
 
@@ -455,7 +591,8 @@ def phase_zfused(entry, psi) -> dict:
     )
 
     Mz, My, Mx = (M[0] for M in entry["mat"])
-    rz = entry["rad"][0]
+    rads = entry["rad"]
+    rz = rads[0]
     ry, rx = lc.band_radius(My), lc.band_radius(Mx)
     R = Mz.shape[0]
     Z, Y, X = psi.shape
@@ -466,7 +603,7 @@ def phase_zfused(entry, psi) -> dict:
     cases = {"plain": kernel_error(got, conv_lowrank_folded(psi, Mz, My,
                                                             Mx)),
              "pair": kernel_error(got, lc.conv_lowrank_folded_fused(
-                 psi, Mz, My, Mx, rad_z=rz))}
+                 psi, Mz, My, Mx, *rads))}
     rng = np.random.default_rng(4)
     n = 208
     mats = [torch.from_numpy(M).cuda().to(torch.bfloat16)
@@ -484,7 +621,7 @@ def phase_zfused(entry, psi) -> dict:
              "plain_ms": cuda_ms(lambda: conv_lowrank_folded(vm, Mz, My, Mx),
                                  3),
              "pair_ms": cuda_ms(lambda: lc.conv_lowrank_folded_fused(
-                 vm, Mz, My, Mx, rad_z=rz), 10)}
+                 vm, Mz, My, Mx, *rads), 10)}
     # the kernel reads only the band of each matrix: its nonzeros
     nnz = lambda M: float((M != 0).sum())              # noqa: E731
     n_bytes = float(vm.numel() * 2 + Z * Y * X * 4) \
@@ -1168,22 +1305,30 @@ def phase_small_vs_cpu() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--zpass-of", metavar="DIR",
-                    help="time only the z pass of DIR's package (`.` for "
-                         "this checkout; another one, such as an older "
-                         "commit unpacked beside it, for a comparison "
-                         "within one call) and print no result line")
+    alone = ap.add_mutually_exclusive_group()
+    alone.add_argument("--zpass-of", metavar="DIR",
+                       help="time only the z pass of DIR's package (`.` "
+                            "for this checkout; another one, such as an "
+                            "older commit unpacked beside it, for a "
+                            "comparison within one call) and print no "
+                            "result line")
+    alone.add_argument("--sl-rows-of", metavar="DIR",
+                       help="the same for the fused y/x rows pass")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(args.zpass_of or ROOT).resolve()))
+    other = args.zpass_of or args.sl_rows_of
+    sys.path.insert(0, str(Path(other or ROOT).resolve()))
     import spim_registration_tpu_torch  # noqa: F401  (fails without the repo)
 
-    if args.zpass_of:
+    if other:
         phase_card()
-        zpass_alone()
+        if args.zpass_of:
+            zpass_alone()
+        else:
+            sl_rows_alone()
         return 0
 
     # the CP-factor cache stays inside the checkout

@@ -54,7 +54,8 @@
 // inside the same kernel.
 //
 // The float32 matrices (lowrank_dtype="float32") take a plain SIMT kernel
-// with one thread per output element: not the main path, kept exact.
+// with one thread per output element (any R * N): not the main path, kept
+// exact.
 //
 // Plain C interface for ctypes; every launch returns cudaGetLastError().
 
@@ -349,21 +350,23 @@ zpass_bf16_kernel(const __grid_constant__ CUtensorMap out_map,
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// One thread per output element; blockIdx.y strides over the R * N rows
+// (more than the grid's 65535 take several rows a block).
 __global__ void __launch_bounds__(F32_THREADS)
 zpass_f32_kernel(const float* __restrict__ mz, const float* __restrict__ vm,
                  float* __restrict__ out, const int* __restrict__ win,
-                 int N, int P, long long J) {
+                 int R, int N, int P, long long J) {
   const long long j = static_cast<long long>(blockIdx.x) * F32_THREADS +
                       threadIdx.x;
-  const int n = blockIdx.y % N;
-  const int r = blockIdx.y / N;
   if (j >= J) return;
-  const int tile = n / TM;
-  const float* row = mz + (static_cast<long long>(r) * N + n) * P;
-  float acc = 0.0f;
-  for (int k = win[2 * tile]; k < win[2 * tile + 1]; ++k)
-    acc = fmaf(row[k], vm[static_cast<long long>(k) * J + j], acc);
-  out[(static_cast<long long>(r) * N + n) * J + j] = acc;
+  for (int rn = blockIdx.y; rn < R * N; rn += gridDim.y) {
+    const int tile = (rn % N) / TM;
+    const float* row = mz + static_cast<long long>(rn) * P;
+    float acc = 0.0f;
+    for (int k = win[2 * tile]; k < win[2 * tile + 1]; ++k)
+      acc = fmaf(row[k], vm[static_cast<long long>(k) * J + j], acc);
+    out[static_cast<long long>(rn) * J + j] = acc;
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -482,11 +485,13 @@ int spim_zpass(const void* mz, const void* vm, void* out, const int* win,
                                        ct, tma, s);
   }
   if (dtype == 1) {
+    if (R <= 0 || N <= 0 || static_cast<long long>(R) * N > 0x7fffffff)
+      return static_cast<int>(cudaErrorInvalidValue);
     dim3 grid(static_cast<unsigned>((J + F32_THREADS - 1) / F32_THREADS),
-              static_cast<unsigned>(R * N));
+              static_cast<unsigned>(R * N < 65535 ? R * N : 65535));
     zpass_f32_kernel<<<grid, F32_THREADS, 0, s>>>(
         static_cast<const float*>(mz), static_cast<const float*>(vm),
-        static_cast<float*>(out), win, N, P, J);
+        static_cast<float*>(out), win, R, N, P, J);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);

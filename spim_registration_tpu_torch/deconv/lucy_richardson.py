@@ -261,13 +261,12 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
     if conv_backend == "lowrank":
         mats = [e["mat"] for e in list(k1) + list(k2) if "mat" in e]
         n_phases = mats[0][0].shape[0] if mats else 1
-        conv_mat = (conv_lowrank_folded_fused if lowrank_fused
-                    else (lambda x, mz, my, mx, rad_z=None:
-                          conv_lowrank_folded(x, mz, my, mx)))
 
         def conv(x, entry, step):
             mz, my, mx = (M[step % n_phases] for M in entry["mat"])
-            return conv_mat(x, mz, my, mx, rad_z=entry["rad"][0])
+            if lowrank_fused:
+                return conv_lowrank_folded_fused(x, mz, my, mx, *entry["rad"])
+            return conv_lowrank_folded(x, mz, my, mx)
 
         def view_delta(psi, v, step):
             e1, e2 = k1[v], k2[v]

@@ -9,9 +9,11 @@ folded-matrix passes (`ops/separable.py`); here they run as two kernels:
   one rounding to the matrix dtype; the rank loop inside the block, the
   volume window read once for all ranks (`zpass_plan` sizes its tile).
   Replaces `_zpass_banded_kernel` and `_zpass_kernel`.
-- `sl_rows` (csrc/sl_rows.cu): o[z] = sum_r round(My[r] @ a[r, z]) @ Mx[r]^T,
-  the rank loop inside the block, `o` written once in f32. Replaces
-  `_sl_rows_kernel`.
+- `sl_rows` (csrc/sl_rows.cu): o[z] = sum_r round(My[r] @ a[r, z]) @ Mx[r]^T
+  over each 64 x 64 output tile's y and x band windows (`band_blocks`
+  on both axes), the rank loop inside the block, `o` written once in f32
+  (`sl_rows_plan` cuts windows wider than a block holds into pieces).
+  Replaces `_sl_rows_kernel`.
 
 and, off the RL engine's path, the whole chain as one kernel:
 
@@ -28,9 +30,11 @@ Each wrapper counts its kernel launches in a plain integer attribute
 (`zpass.launches`, `sl_rows.launches`, `zfused.launches`).
 
 The TPU-only planning of the reference (VMEM plans, the X % 128 lane
-requirement, the y/x banding gate) has no counterpart: the CUDA kernels
-take any shape, mask the ragged edges, and their wrappers raise on what
-they cannot take.
+requirement, the y/x banding gate at 384, the XLA chain for what the plan
+refuses) has no counterpart: the CUDA kernels mask the ragged edges, band
+wherever the window table is not dense, and `sl_rows` takes windows of
+any width in pieces; what is still out of reach (a z window wider than
+`zpass_plan` takes, Z > 65535) raises ValueError.
 """
 
 from __future__ import annotations
@@ -103,6 +107,24 @@ def band_blocks(N: int, P: int, rad: int, off: int = 0):
     return tuple(wins)
 
 
+def _widest(P: int, windows) -> int:
+    return P if windows is None else max(k1 - k0 for k0, k1 in windows)
+
+
+def _round_up(n: int, m: int) -> int:
+    return max(m, -(-n // m) * m)
+
+
+def _zpass_fit(P: int, windows):
+    """`zpass_plan`'s plan, or None where no instance takes the window."""
+    kpad = _round_up(_widest(P, windows), _MMA_DEPTH)
+    for tn, ct, limit in _ZPASS_SHAPES:
+        smem = _zpass_smem(tn, kpad, ct)
+        if smem <= limit:
+            return tn, kpad, ct, smem
+    return None
+
+
 def zpass_plan(P: int, windows=None) -> tuple:
     """The bf16 z-pass launch for a window table: (tn, kpad, ct, smem
     bytes). kpad is the widest window rounded up to the MMA depth; (tn, ct)
@@ -110,14 +132,70 @@ def zpass_plan(P: int, windows=None) -> tuple:
     tiles of 128 a block, two blocks an SM, where the window allows.
     `windows` None means the dense [0, P). Raises ValueError beyond
     ZPASS_MAX_WINDOW columns."""
-    widths = [P] if windows is None else [k1 - k0 for k0, k1 in windows]
-    kpad = max(_MMA_DEPTH, -(-max(widths) // _MMA_DEPTH) * _MMA_DEPTH)
-    for tn, ct, limit in _ZPASS_SHAPES:
-        smem = _zpass_smem(tn, kpad, ct)
-        if smem <= limit:
-            return tn, kpad, ct, smem
-    raise ValueError(f"zpass: the kernel cannot take a window of "
-                     f"{max(widths)} columns (at most {ZPASS_MAX_WINDOW})")
+    plan = _zpass_fit(P, windows)
+    if plan is None:
+        raise ValueError(f"zpass: the kernel cannot take a window of "
+                         f"{_widest(P, windows)} columns (at most "
+                         f"{ZPASS_MAX_WINDOW})")
+    return plan
+
+
+# The bf16 sl_rows kernel: y and x pieces pad to its 32-column swizzle
+# slab and stage-1 chunk (XC in csrc/sl_rows.cu, checked against the
+# library when it loads); a y piece has at most SL_ROWS_PIECE columns (a
+# TMA box's rows, MAX_KP there). Its z-slices a block, in the order
+# `sl_rows_plan` tries them: four share each rank's matrix tiles where the
+# windows allow.
+SL_ROWS_CHUNK = 32
+SL_ROWS_PIECE = 256
+_SL_ROWS_SLICES = (4, 2, 1)
+
+
+def _sl_rows_smem(kp: int, xp: int, tz: int) -> int:
+    """Shared-memory bytes of a bf16 sl_rows block (csrc/sl_rows.cu
+    `spim_sl_rows_smem`): 1024 bytes of alignment, 16 of mbarriers and two
+    ring slots of a 64 x kp My tile, tz kp x xp pieces of `a` (one a
+    z-slice) and a 64 x xp Mx tile, all bf16."""
+    t = ZPASS_TILE_ROWS
+    return 1040 + 4 * (t * kp + tz * kp * xp + t * xp)
+
+
+def sl_rows_plan(Y: int, X: int, Yo: int, Xo: int, y_windows=None,
+                 x_windows=None) -> tuple:
+    """The bf16 sl_rows launch for its window tables: (kp, xp, tz, smem
+    bytes). `y_windows` has one (k0, k1) window of Y per 64-row tile of Yo
+    and `x_windows` one window of X per 64-column tile of Xo (from
+    `band_blocks`); None is the dense [0, Y) / [0, X). The kernel walks
+    each tile's windows in pieces of kp y columns and xp x columns (its
+    ring's unit) with tz z-slices a block. A piece is the whole window
+    (the widest y and x windows rounded up to the 32-column slab) where a
+    block of four, two or one slices holds it, the first that does.
+    Otherwise four slices a block, y in pieces of at most SL_ROWS_PIECE
+    columns and x in the widest pieces that still fit (one 32-column
+    chunk where y is cut). Every window is planned; a bad table raises
+    ValueError."""
+    for name, n, tiles, wins in (("y", Y, Yo, y_windows),
+                                 ("x", X, Xo, x_windows)):
+        if wins is not None and (
+                len(wins) != -(-tiles // ZPASS_TILE_ROWS) or any(
+                    k0 % _MMA_DEPTH or not 0 <= k0 <= k1 <= n
+                    for k0, k1 in wins)):
+            raise ValueError(f"sl_rows: bad {name} window table for "
+                             f"{tiles} rows of {n}")
+    kyp = _round_up(_widest(Y, y_windows), SL_ROWS_CHUNK)
+    xwp = _round_up(_widest(X, x_windows), SL_ROWS_CHUNK)
+    if kyp <= SL_ROWS_PIECE:
+        for tz in _SL_ROWS_SLICES:
+            smem = _sl_rows_smem(kyp, xwp, tz)
+            if smem <= _SMEM_MAX:
+                return kyp, xwp, tz, smem
+    kp, tz = min(kyp, SL_ROWS_PIECE), _SL_ROWS_SLICES[0]
+    xp = SL_ROWS_CHUNK
+    if kp == kyp:
+        per_col = _sl_rows_smem(kp, 1, tz) - _sl_rows_smem(kp, 0, tz)
+        xp = ((_SMEM_MAX - _sl_rows_smem(kp, 0, tz)) // per_col
+              // SL_ROWS_CHUNK * SL_ROWS_CHUNK)
+    return kp, xp, tz, _sl_rows_smem(kp, xp, tz)
 
 
 def zpass_reference(Mz: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
@@ -168,12 +246,62 @@ def _zpass_lib():
 @functools.lru_cache(maxsize=None)
 def _sl_rows_lib():
     lib = build.load("sl_rows")
-    lib.spim_sl_rows_smem.argtypes = [ctypes.c_int] * 4
+    for fn in (lib.spim_sl_rows_tile, lib.spim_sl_rows_chunk):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.spim_sl_rows_smem.argtypes = [ctypes.c_int] * 3
     lib.spim_sl_rows_smem.restype = ctypes.c_int
-    lib.spim_sl_rows.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    lib.spim_sl_rows.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     lib.spim_sl_rows.restype = ctypes.c_int
+    if (lib.spim_sl_rows_tile() != ZPASS_TILE_ROWS
+            or lib.spim_sl_rows_chunk() != SL_ROWS_CHUNK):
+        raise RuntimeError("csrc/sl_rows.cu tile or chunk differ from "
+                           "ZPASS_TILE_ROWS / SL_ROWS_CHUNK")
+    for tz in _SL_ROWS_SLICES:
+        for kp, xp in ((32, 32), (96, 96), (SL_ROWS_PIECE, 32),
+                       (SL_ROWS_PIECE, 256), (SL_ROWS_PIECE + 32, 32)):
+            want = _sl_rows_smem(kp, xp, tz)
+            if lib.spim_sl_rows_smem(kp, xp, tz) != (
+                    want if want <= _SMEM_MAX and kp <= SL_ROWS_PIECE
+                    else -1):
+                raise RuntimeError("csrc/sl_rows.cu shared memory differs "
+                                   "from sl_rows_plan")
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _sl_rows_setup(Y: int, X: int, Yo: int, Xo: int, rad_y, rad_x,
+                   bf16: bool, device: torch.device) -> tuple:
+    """The y and x window tables (dense where a half-support is None or
+    the band covers the axis) as one int32 tensor on `device`, with the
+    bf16 plan (kp, xp, tz, and 1 where some window is cut into pieces;
+    zeros for float32): work shared by every launch on the same shapes."""
+    tables = [band_blocks(tiles, n, rad) if rad is not None else None
+              for n, tiles, rad in ((Y, Yo, rad_y), (X, Xo, rad_x))]
+    plan = (0,) * 4
+    if bf16:
+        kp, xp, tz, _ = sl_rows_plan(Y, X, Yo, Xo, *tables)
+        plan = (kp, xp, tz, int(kp < _widest(Y, tables[0])
+                                or xp < _widest(X, tables[1])))
+    flat = []
+    for (n, tiles), wins in zip(((Y, Yo), (X, Xo)), tables):
+        flat += wins or ((0, n),) * -(-tiles // ZPASS_TILE_ROWS)
+    table = torch.tensor(flat, dtype=torch.int32, device=device)
+    return (table.reshape(-1),) + plan
+
+
+def sl_rows_tma_load(a: torch.Tensor, My: torch.Tensor,
+                     Mx: torch.Tensor) -> bool:
+    """Whether the bf16 sl_rows kernel loads its tiles by TMA (one thread
+    a block, through tensor maps whose boxes are the padded pieces): rows
+    of Y and X a multiple of 16 bytes and 16-byte aligned bases. A box may
+    run past an axis (the card fills zeros). Other inputs take every
+    thread's cp.async copies; tensor maps that should exist but cannot be
+    built raise."""
+    Y, X = a.shape[2], a.shape[3]
+    return (Y % 8 == 0 and X % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (a, My, Mx)))
 
 
 @functools.lru_cache(maxsize=256)
@@ -233,7 +361,7 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     the dense contraction. CPU tensors take `zpass_reference`. The bf16
     kernel takes any R, N, P and Y * X with windows of at most
     ZPASS_MAX_WINDOW (560) columns, and raises ValueError beyond
-    (`zpass_plan`); the f32 kernel takes R * N <= 65535."""
+    (`zpass_plan`); the f32 kernel takes any window."""
     if Mz.device.type == "cpu" and vm.device.type == "cpu":
         return zpass_reference(Mz, vm)
     code = _check_cuda("zpass", Mz, vm)
@@ -244,9 +372,6 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     if windows is not None and not isinstance(windows, tuple):
         windows = tuple(tuple(w) for w in windows)
     table, tn, kpad, ct = _zpass_setup(windows, N, P, code == 0, Mz.device)
-    if code != 0 and R * N > 65535:
-        raise ValueError(f"zpass: R x N = {R * N} exceeds the grid "
-                         f"limit of the float32 kernel")
     out = torch.empty((R, N, Y, X), dtype=Mz.dtype, device=Mz.device)
     err = _zpass_lib().spim_zpass(
         Mz.data_ptr(), vm.data_ptr(), out.data_ptr(), table.data_ptr(),
@@ -261,11 +386,17 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
 zpass.launches = 0
 
 
-def sl_rows(a: torch.Tensor, My: torch.Tensor, Mx: torch.Tensor
+def sl_rows(a: torch.Tensor, My: torch.Tensor, Mx: torch.Tensor,
+            rad_y: int | None = None, rad_x: int | None = None
             ) -> torch.Tensor:
     """Fused y/x passes and rank sum: a (R, Z, Y, X), My (R, Yo, Y),
-    Mx (R, Xo, X) -> (Z, Yo, Xo) f32. CPU tensors take
-    `fused_sl_reference`."""
+    Mx (R, Xo, X) -> (Z, Yo, Xo) f32. `rad_y` / `rad_x`: the half-supports
+    of the band matrices My / Mx (taken as given, as `zpass` takes its
+    windows); when given, each 64 x 64 output tile contracts only its
+    y and x band windows (`band_blocks`), otherwise the dense [0, Y) and
+    [0, X). CPU tensors take `fused_sl_reference`. Both kernels take any
+    Y, X, Yo, Xo and window (the bf16 one walks wide windows in pieces,
+    `sl_rows_plan`) and Z <= 65535; a larger Z raises ValueError."""
     if all(t.device.type == "cpu" for t in (a, My, Mx)):
         return fused_sl_reference(a, My, Mx)
     code = _check_cuda("sl_rows", a, My, Mx)
@@ -276,15 +407,14 @@ def sl_rows(a: torch.Tensor, My: torch.Tensor, Mx: torch.Tensor
                          f"{tuple(My.shape)}, Mx {tuple(Mx.shape)}")
     if Z > 65535:
         raise ValueError(f"sl_rows: Z={Z} exceeds the grid limit")
-    lib = _sl_rows_lib()
-    if lib.spim_sl_rows_smem(Y, X, Xo, code) < 0:
-        raise ValueError(f"sl_rows: the kernel cannot take Y={Y}, X={X}, "
-                         f"Xo={Xo} in {a.dtype}")
+    table, kp, xp, tz, pieces = _sl_rows_setup(Y, X, Yo, Xo, rad_y, rad_x,
+                                               code == 0, a.device)
     out = torch.empty((Z, Yo, Xo), dtype=torch.float32, device=a.device)
-    err = lib.spim_sl_rows(
+    err = _sl_rows_lib().spim_sl_rows(
         a.data_ptr(), My.data_ptr(), Mx.data_ptr(), out.data_ptr(),
-        R, Z, Y, X, Yo, Xo, code,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        table.data_ptr(), R, Z, Y, X, Yo, Xo, code, kp, xp, tz, pieces,
+        int(code == 0 and sl_rows_tma_load(a, My, Mx)),
+        torch._C._cuda_getCurrentRawStream(a.get_device()))
     _raise_on(err, "sl_rows")
     sl_rows.launches += 1
     return out
@@ -293,35 +423,45 @@ def sl_rows(a: torch.Tensor, My: torch.Tensor, Mx: torch.Tensor
 sl_rows.launches = 0
 
 
+def _z_slabs(Z: int, R: int, Y: int, X: int, itemsize: int) -> list:
+    """The (start, stop) z-slabs of `conv_lowrank_folded_fused`: one when
+    the z pass's `a` (R, Z, Y, X) stays within `_A_SLAB_BYTES`, else as
+    many rows a slab as fit it."""
+    per_row = R * Y * X * itemsize
+    sl = Z if per_row * Z <= _A_SLAB_BYTES else max(1, _A_SLAB_BYTES
+                                                     // per_row)
+    return [(s, min(s + sl, Z)) for s in range(0, Z, sl)]
+
+
 def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
                               My: torch.Tensor, Mx: torch.Tensor,
-                              rad_z: int | None = None) -> torch.Tensor:
+                              rad_z: int | None = None,
+                              rad_y: int | None = None,
+                              rad_x: int | None = None) -> torch.Tensor:
     """Mirror-boundary lowrank convolution through `zpass` + `sl_rows`
     (the twin of `ops.separable.conv_lowrank_folded`).
 
-    `rad_z`: the kernel's z half-support; when given, the z pass
-    contracts only each tile's band window. Volumes whose `a` would exceed
-    `_A_SLAB_BYTES` run in z-slabs at full rank: the z-pass matrix rows
-    are sliced to the slab and the band centre shifts by the slab's first
-    row."""
+    `rad_z` / `rad_y` / `rad_x`: the kernel's half-supports; each one
+    given makes its pass contract only each tile's band window on that
+    axis. Volumes whose `a` would exceed `_A_SLAB_BYTES` run in z-slabs at
+    full rank: the z-pass matrix rows are sliced to the slab and the band
+    centre shifts by the slab's first row."""
     Z, Y, X = vol.shape
-    R = Mz.shape[0]
     vm = vol.to(Mz.dtype).contiguous()
 
     def run(mz: torch.Tensor, off: int) -> torch.Tensor:
         win = (band_blocks(mz.shape[1], Z, rad_z, off)
                if rad_z is not None else None)
-        return sl_rows(zpass(mz.contiguous(), vm, win), My, Mx)
+        return sl_rows(zpass(mz.contiguous(), vm, win), My, Mx, rad_y, rad_x)
 
-    per_row = R * Y * X * Mz.element_size()
-    if per_row * Z > _A_SLAB_BYTES:
-        sl = max(1, _A_SLAB_BYTES // per_row)
-        out = torch.empty((Z, My.shape[1], Mx.shape[1]), dtype=torch.float32,
-                          device=vol.device)
-        for s in range(0, Z, sl):
-            out[s:s + sl] = run(Mz[:, s:s + sl], s)
-        return out.to(vol.dtype)
-    return run(Mz, 0).to(vol.dtype)
+    slabs = _z_slabs(Z, Mz.shape[0], Y, X, Mz.element_size())
+    if len(slabs) == 1:
+        return run(Mz, 0).to(vol.dtype)
+    out = torch.empty((Z, My.shape[1], Mx.shape[1]), dtype=torch.float32,
+                      device=vol.device)
+    for s, e in slabs:
+        out[s:e] = run(Mz[:, s:e], s)
+    return out.to(vol.dtype)
 
 
 def band_radius(M: torch.Tensor) -> int:

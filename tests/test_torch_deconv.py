@@ -228,3 +228,34 @@ def test_unknown_options_raise(preps):
         DeconvolutionParameters(), scheme="bogus"), device="cpu")
     with pytest.raises(ValueError, match="scheme"):
         runner.run(1)
+
+
+def test_lowrank_engine_passes_half_supports(preps, monkeypatch):
+    """With `lowrank_fused` each conv goes to the kernels' entry point
+    with all three half-supports of its entry (`rad`), as the reference
+    passes them; on the CPU its wrappers take their plain versions, so
+    the estimate equals the plain chain's (bf16: the 2e-4 limit of the
+    other bf16 tests, for one-ULP rounding flips)."""
+    from spim_registration_tpu_torch.deconv import lucy_richardson as lr
+
+    _, port = preps
+    kw = dict(num_iterations=2, conv_backend="lowrank", psf_rank=16,
+              psf_rank_tol=1e-3)
+    seen = []
+    fused = lr.conv_lowrank_folded_fused
+
+    def spy(x, mz, my, mx, *rads):
+        seen.append(rads)
+        return fused(x, mz, my, mx, *rads)
+
+    monkeypatch.setattr(lr, "conv_lowrank_folded_fused", spy)
+    on = DeconvolutionRunner(port, DeconvolutionParameters(
+        **kw, lowrank_fused=True), device="cpu")
+    got = on.run().numpy()
+    rads = {e["rad"] for e in on.k1_ffts + on.k2_ffts if "mat" in e}
+    assert seen and set(seen) == rads
+    assert all(len(r) == 3 for r in rads)
+    off = DeconvolutionRunner(port, DeconvolutionParameters(
+        **kw, lowrank_fused=False), device="cpu")
+    n = len(seen)
+    assert _nrmse(got, off.run().numpy()) < 2e-4 and len(seen) == n

@@ -8,6 +8,7 @@ card and no JAX it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_isolation.py
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -188,12 +189,18 @@ def _cuda_or_skip():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_kernels_match_plain_on_cuda(dtype):
-    """zpass (banded, dense, slab offset) and sl_rows on ragged shapes,
-    and the fused conv against the plain chain, on the card; then zpass
-    alone at rank 1 and 48, ragged N, J % 8 != 0, dense windows at P = 300
-    (rows not 16-byte aligned) and P = 512 (the 64-column instance), the
-    main path's y * x through the TMA store, and the raise on a window no
-    instance takes."""
+    """zpass (banded, dense, slab offset) and sl_rows (banded, dense) on
+    ragged shapes, and the fused conv against the plain chain, on the
+    card; then zpass alone at rank 1 and 48, ragged N, J % 8 != 0, dense
+    windows at P = 300 (rows not 16-byte aligned) and P = 512 (the
+    64-column instance), R x N over the grid's 65535, the main path's
+    y * x through the TMA store, and the raise on a window no instance
+    takes; then sl_rows alone, banded, on ragged Yo and Xo, Y not a
+    multiple of 16, rank 1 and 48, ragged z-groups of four and of two
+    slices (half-support 24) and X = 600, and windows wider than a block
+    holds (dense planes up to 1300 x 64 and 128 x 600, a band of
+    half-support 150), walked in pieces, through TMA loads and through
+    cp.async copies."""
     _cuda_or_skip()
     from spim_registration_tpu_torch.ops.separable import (
         conv_lowrank_folded,
@@ -233,12 +240,14 @@ def test_kernels_match_plain_on_cuda(dtype):
         for wins in (lc.band_blocks(Z - s0, Z, rad, off=s0), None):
             close(lc.zpass(mzs, vm, wins), want, rel)
         a = lc.zpass_reference(Mz, vm)
-        close(lc.sl_rows(a, My, Mx), lc.fused_sl_reference(a, My, Mx), rel)
+        want = lc.fused_sl_reference(a, My, Mx)
+        close(lc.sl_rows(a, My, Mx), want, rel)
+        close(lc.sl_rows(a, My, Mx, rad, rad), want, rel)
         assert lc.zpass.launches == n0 + 2
-        assert lc.sl_rows.launches == n1 + 1
+        assert lc.sl_rows.launches == n1 + 2
         vol = torch.from_numpy(rng.random((Z, Y, X)).astype(np.float32)
                                ).to(dev)
-        got = lc.conv_lowrank_folded_fused(vol, Mz, My, Mx, rad_z=rad)
+        got = lc.conv_lowrank_folded_fused(vol, Mz, My, Mx, rad, rad, rad)
         close(got, conv_lowrank_folded(vol, Mz, My, Mx),
               2.0 ** -6 if dt == torch.bfloat16 else 1e-5)
     # (R, Z, Y, X, taps or None for the dense window, first slab row)
@@ -248,7 +257,8 @@ def test_kernels_match_plain_on_cuda(dtype):
                                    (2, 70, 5, 7, 9, 0),
                                    (2, 300, 4, 40, None, 0),
                                    (1, 512, 2, 64, None, 0),
-                                   (3, 256, 6, 33, 19, 96)):
+                                   (3, 256, 6, 33, 19, 96),
+                                   (1100, 64, 2, 8, 19, 0)):
         az = rng.standard_normal((R, taps or 19))
         Mz = torch.from_numpy(folded_conv_matrices(az, az, az, (Z, 32, 32))[0]
                               if taps else rng.standard_normal((R, Z, Z))
@@ -276,6 +286,35 @@ def test_kernels_match_plain_on_cuda(dtype):
         Mz = torch.zeros((1, 64, 600), device=dev, dtype=dt)
         with pytest.raises(ValueError, match="cannot take"):
             lc.zpass(Mz, torch.zeros((600, 2, 8), device=dev, dtype=dt))
+    # (R, Z, Y, X, taps, band windows or dense, whether bf16 takes the
+    # TMA loads)
+    for (R, Z, Y, X, taps, banded, tma) in (
+            (1, 5, 100, 130, 19, True, False),
+            (48, 4, 64, 64, 19, True, True),
+            (3, 9, 256, 256, 19, True, True),
+            (2, 3, 40, 600, 19, True, True),
+            (2, 5, 128, 600, 19, True, True),
+            (2, 5, 256, 256, 49, True, True),
+            (4, 6, 200, 136, 7, True, True),
+            # wider than a block holds: y in pieces of 256 ...
+            (2, 3, 304, 336, 19, False, True),
+            (2, 3, 300, 330, 19, False, False),
+            (1, 2, 1300, 64, 19, False, False),
+            (2, 2, 600, 600, 301, True, True),
+            # ... and x in pieces of 64
+            (3, 2, 128, 600, 19, False, True)):
+        f = rng.standard_normal((R, taps)) * 0.3
+        _, My, Mx = (torch.from_numpy(M).to(dev).to(dt) for M in
+                     folded_conv_matrices(f, f, f, (8, Y, X)))
+        a = torch.from_numpy(rng.standard_normal((R, Z, Y, X))
+                             .astype(np.float32)).to(dev).to(dt)
+        rad = (taps - 1) // 2 if banded else None
+        if dt == torch.bfloat16:
+            assert lc.sl_rows_tma_load(a, My, Mx) is tma
+        n1 = lc.sl_rows.launches
+        close(lc.sl_rows(a, My, Mx, rad, rad),
+              lc.fused_sl_reference(a, My, Mx), rel)
+        assert lc.sl_rows.launches == n1 + 1, (R, Z, Y, X)
     torch.cuda.synchronize()
 
 
@@ -319,12 +358,54 @@ def test_kernel_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError, match="contiguous"):
         lc.zpass(Mz.transpose(1, 2), torch.zeros(
             (8, 4, 4), device=dev, dtype=torch.bfloat16))
-    a = torch.zeros((2, 4, 4, 600), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="cannot take"):
-        lc.sl_rows(a, torch.zeros((2, 4, 4), device=dev,
-                                  dtype=torch.bfloat16),
-                   torch.zeros((2, 600, 600), device=dev,
-                               dtype=torch.bfloat16))
+    # a dense 300 x 600 window runs in pieces, as does X = 600 with band
+    # windows; only Z past the grid raises
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    a = torch.zeros((2, 4, 300, 600), **bf)
+    My, Mx = torch.zeros((2, 300, 300), **bf), torch.zeros((2, 600, 600), **bf)
+    assert not lc.sl_rows(a, My, Mx).any()
+    assert not lc.sl_rows(a, My, Mx, 9, 9).any()
+    with pytest.raises(ValueError, match="grid limit"):
+        lc.sl_rows(torch.zeros((1, 65536, 1, 8), **bf),
+                   torch.zeros((1, 1, 1), **bf), torch.zeros((1, 8, 8), **bf))
+
+
+@pytest.mark.cuda
+def test_lowrank_runner_on_cuda():
+    """Lowrank runs of a 16 x 40 x 600 box (X > 512, bf16) and of a
+    4 x 4 x 3700 box (float32: X past one block of the float32 rows
+    pass) go through the kernels, and agree with runs on the plain chain
+    (bf16: rounding flips of one ULP; float32: sums in another order)."""
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.convert import views_from_numpy
+    from spim_registration_tpu_torch.deconv import (
+        DeconvolutionParameters,
+        DeconvolutionRunner,
+        gaussian_psf,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    psfs = [gaussian_psf((9, 9, 9), (2.0, 1.0, 1.4)),
+            gaussian_psf((9, 9, 9), (1.0, 1.3, 2.0))]
+    for shape, dtype, tol in (((16, 40, 600), "bfloat16", 1e-3),
+                              ((4, 4, 3700), "float32", 1e-5)):
+        imgs = rng.random((2,) + shape).astype(np.float32) + 0.1
+        w = np.full(imgs.shape, 0.5, np.float32)
+        prep = views_from_numpy(imgs, w, psfs, 2.0, device="cuda")
+        params = DeconvolutionParameters(
+            num_iterations=2, conv_backend="lowrank", psf_rank=8,
+            psf_rank_tol=1e-3, lowrank_dtype=dtype)
+        n0, n1 = lc.zpass.launches, lc.sl_rows.launches
+        got = DeconvolutionRunner(prep, params, device="cuda").run()
+        torch.cuda.synchronize()
+        launched = (lc.zpass.launches - n0, lc.sl_rows.launches - n1)
+        assert got.shape == shape and bool(torch.isfinite(got).all())
+        assert launched[0] > 0 and launched[1] > 0, (shape, launched)
+        chain = DeconvolutionRunner(prep, dataclasses.replace(
+            params, lowrank_fused=False), device="cuda").run()
+        d = (got.double() - chain.double()).pow(2).mean().sqrt()
+        assert float(d / (chain.max() - chain.min())) <= tol, shape
 
 
 @pytest.mark.cuda

@@ -85,21 +85,39 @@ def test_zpass_plain_matches_pallas_interpret(rng, mode, dt):
     _assert_close(got.float().numpy(), want, dt, atol32=1e-4)
 
 
-@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_fused_sl_reference_matches_pallas_interpret(rng, dt):
-    R, Z, Y, X, Yo, Xo = 3, 16, 24, 40, 24, 40
-    a = rng.standard_normal((R, Z, Y, X)).astype(np.float32)
-    My = rng.standard_normal((R, Yo, Y)).astype(np.float32) * 0.2
-    Mx = rng.standard_normal((R, Xo, X)).astype(np.float32) * 0.2
+@pytest.mark.parametrize("dt,rad", [(torch.float32, None),
+                                    (torch.bfloat16, None),
+                                    (torch.bfloat16, 9)],
+                         ids=["f32", "bf16", "bf16-banded384"])
+def test_fused_sl_reference_matches_pallas_interpret(rng, dt, rad):
+    """The port's rows pass on the CPU (its plain version) against the
+    reference's `fused_sl_reference` and its Pallas kernel in interpret
+    mode. The banded case gives both half-supports on mirror-folded
+    19-tap matrices at 384, where the reference's y/x banding engages
+    (`_BAND_YX_MIN`): its band windows drop nothing the plain version
+    keeps. On the CPU the port ignores the half-supports; its CUDA band
+    windows are held in `test_kernels_match_plain_on_cuda`
+    (tests/test_torch_isolation.py)."""
+    if rad is None:
+        R, Z, Y, X, Yo, Xo = 3, 16, 24, 40, 24, 40
+        a = rng.standard_normal((R, Z, Y, X)).astype(np.float32)
+        My = rng.standard_normal((R, Yo, Y)).astype(np.float32) * 0.2
+        Mx = rng.standard_normal((R, Xo, X)).astype(np.float32) * 0.2
+    else:
+        R, Z, Y = 2, 4, 384
+        X = Yo = Xo = Y
+        f = rng.standard_normal((R, 2 * rad + 1)) * 0.3
+        _, My, Mx = folded_conv_matrices(f, f, f, (8, Y, X))
+        a = rng.standard_normal((R, Z, Y, X)).astype(np.float32)
     jdt = _jnp_dtype(dt)
     aj, myj, mxj = (jnp.asarray(x).astype(jdt) for x in (a, My, Mx))
     want_ref = np.asarray(ref_lc.fused_sl_reference(aj, myj, mxj))
-    want_pl = np.asarray(ref_lc.fused_sl_apply(aj, myj, mxj, tz=8,
-                                               interpret=True))
+    want_pl = np.asarray(ref_lc.fused_sl_apply(
+        aj, myj, mxj, tz=8 if rad is None else 4, interpret=True,
+        rad_y=rad, rad_x=rad))
     at, myt, mxt = (_to_torch(x, dt) for x in (a, My, Mx))
     before = lc.sl_rows.launches
-    got = lc.sl_rows(at, myt, mxt)
+    got = lc.sl_rows(at, myt, mxt, rad, rad)
     assert lc.sl_rows.launches == before
     assert got.dtype == torch.float32 and got.shape == (Z, Yo, Xo)
     got = got.numpy()
@@ -247,3 +265,127 @@ def test_wrappers_reject_tensors_off_the_cpu_and_card(rng):
     a = torch.zeros((2, 8, 4, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         lc.sl_rows(a, torch.zeros((2, 4, 4)), torch.zeros((2, 4, 4)))
+
+
+@pytest.mark.parametrize("n,taps", [(256, 19), (192, 33), (160, 9),
+                                    (600, 19), (100, 7)])
+@pytest.mark.parametrize("axis", [1, 2], ids=["y", "x"])
+def test_yx_band_tables_cover_folded_matrices(n, taps, axis):
+    """The rows pass's twin of `test_band_table_covers_folded_matrices`:
+    every nonzero of a mirror-folded My or Mx lies inside the y or x
+    window its 64-row output tile contracts (`band_blocks` with centre
+    offset 0, as `sl_rows` builds its tables)."""
+    rng = np.random.default_rng(5)
+    rad = (taps - 1) // 2
+    f = rng.standard_normal((3, taps))
+    shape = [8, 8, 8]
+    shape[axis] = n
+    M = folded_conv_matrices(f, f, f, tuple(shape))[axis]
+    wins = lc.band_blocks(n, n, rad)
+    assert wins is not None and len(wins) == -(-n // lc.ZPASS_TILE_ROWS)
+    for t, (k0, k1) in enumerate(wins):
+        assert k0 % 16 == 0 and 0 <= k0 <= k1 <= n
+        rows = M[:, t * lc.ZPASS_TILE_ROWS:(t + 1) * lc.ZPASS_TILE_ROWS]
+        outside = np.concatenate([rows[:, :, :k0], rows[:, :, k1:]], 2)
+        assert not outside.any(), (n, taps, t)
+
+
+def _yx_tables(Y, X, rad):
+    return lc.band_blocks(Y, Y, rad), lc.band_blocks(X, X, rad)
+
+
+@pytest.mark.parametrize("Y,X,rad,want", [
+    # the RL main path (256^3, half-support 9): 96-column windows, four
+    # z-slices a block sharing the matrix tiles, each window one piece
+    (256, 256, 9, (96, 96, 4, 197648)),
+    # the pipeline's 208^3 box and the CLI's 315 x 267 x 314 box
+    (208, 208, 9, (96, 96, 4, 197648)),
+    (267, 314, 9, (96, 96, 4, 197648)),
+    # X = 600 and Y = 1300: band windows keep the tiles small
+    (40, 600, 9, (64, 96, 4, 140304)),
+    (1300, 64, 9, (96, 64, 4, 140304)),
+    # wider bands: two slices a block, then one
+    (256, 256, 24, (128, 128, 2, 197648)),
+    (256, 256, 40, (160, 160, 1, 185360)),
+])
+def test_sl_rows_plan(Y, X, rad, want):
+    """The bf16 rows pass's launch plan for band tables (y and x piece
+    widths, z-slices a block, shared memory): windows padded to the
+    32-column slab; short axes take the dense window."""
+    plan = lc.sl_rows_plan(Y, X, Y, X, *_yx_tables(Y, X, rad))
+    assert plan == want
+    kp, xp, tz, smem = plan
+    assert smem == lc._sl_rows_smem(kp, xp, tz) <= lc._SMEM_MAX
+
+
+@pytest.mark.parametrize("Y,X,want", [
+    # a y window of at most 256 is one piece, x in pieces
+    (256, 256, (256, 32, 4, 205840)),
+    # a window that one slice a block still holds whole
+    (65, 300, (96, 320, 1, 230416)),
+    (208, 208, (224, 32, 4, 181264)),
+    (100, 600, (128, 64, 4, 181264)),
+    # y wider than a piece: y in pieces of 256, one x chunk a piece
+    (300, 300, (256, 32, 4, 205840)),
+    (300, 600, (256, 32, 4, 205840)),
+    (1300, 64, (256, 32, 4, 205840)),
+])
+def test_sl_rows_plan_dense(Y, X, want):
+    """Dense windows of any size are planned: the kernel walks what a
+    block cannot hold whole in pieces of kp y columns and xp x columns."""
+    assert lc.sl_rows_plan(Y, X, Y, X) == want
+
+
+def test_sl_rows_plan_cuts_wide_band_windows_into_pieces():
+    """A band window wider than a block holds (half-support 150) is
+    planned in pieces, not refused."""
+    wins = lc.band_blocks(600, 600, 150)
+    assert lc.sl_rows_plan(600, 600, 600, 600, wins, wins) == \
+        (256, 32, 4, 205840)
+
+
+def test_sl_rows_plan_rejects_bad_tables():
+    with pytest.raises(ValueError, match="window table"):
+        lc.sl_rows_plan(256, 256, 256, 256, ((0, 96),), None)
+    with pytest.raises(ValueError, match="window table"):
+        lc.sl_rows_plan(256, 256, 256, 256, None, ((8, 96),) * 4)
+
+
+@pytest.mark.parametrize("n", [16, 100, 256, 333, 600, 1300, 4100])
+@pytest.mark.parametrize("rad", [None, 4, 9, 60, 200])
+def test_sl_rows_plan_always_fits(n, rad):
+    """Every plan fits a block and the kernel's limits: pieces on the
+    32-column slab, y pieces of at most SL_ROWS_PIECE (the TMA box's
+    rows); an x piece no wider than the padded window, and one 32-column
+    chunk where the y window is cut."""
+    for Y, X in ((n, 64), (64, n), (n, n)):
+        tables = [None if rad is None else lc.band_blocks(m, m, rad)
+                  for m in (Y, X)]
+        kp, xp, tz, smem = lc.sl_rows_plan(Y, X, Y, X, *tables)
+        assert smem == lc._sl_rows_smem(kp, xp, tz) <= lc._SMEM_MAX
+        assert kp % 32 == 0 and xp % 32 == 0 and tz in (1, 2, 4)
+        assert 32 <= kp <= lc.SL_ROWS_PIECE and xp >= 32
+        widest_y, widest_x = (m if t is None else max(k1 - k0 for k0, k1 in t)
+                              for m, t in zip((Y, X), tables))
+        assert xp <= max(32, -(-widest_x // 32) * 32)
+        assert widest_y <= kp or xp == 32
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((2, 4, 256, 256), 0, True),    # the main path's `a`
+    ((2, 4, 256, 100), 0, False),   # rows of 200 bytes
+    ((2, 4, 256, 256), 1, False),   # base 2 bytes past an aligned address
+    ((2, 4, 40, 256), 0, True),     # a box may run past the axis
+])
+def test_sl_rows_tma_load(shape, offset, want):
+    """The bf16 rows pass loads by TMA wherever its tensor maps can be
+    built: rows of 16-byte multiples from aligned bases, as the main
+    path's inputs are (256^3)."""
+    R, Z, Y, X = shape
+    n = int(np.prod(shape))
+    buf = torch.empty(n + 16, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    a = buf[offset:offset + n].view(shape)
+    My = torch.empty((R, Y, Y), dtype=torch.bfloat16)
+    Mx = torch.empty((R, X, X), dtype=torch.bfloat16)
+    assert lc.sl_rows_tma_load(a, My, Mx) is want
