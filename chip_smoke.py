@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --zpass-of DIR   # the z pass alone (see below)
     python3 chip_smoke.py --sl-rows-of DIR # the rows pass alone
+    python3 chip_smoke.py --segtopk-of DIR # the segment top-k alone
+    python3 chip_smoke.py --dog-of DIR     # the fused DoG alone
 
 Drives the port (`spim_registration_tpu_torch`, never JAX or the JAX
 package) and exits nonzero on any failure:
@@ -61,7 +63,9 @@ nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 
 `--zpass-of DIR` runs only the card phase and the z pass of DIR's
 package (`zpass_alone`), `--sl-rows-of DIR` the rows pass of DIR's
-package (`sl_rows_alone`), without the result line: to compare two
+package (`sl_rows_alone`), `--segtopk-of DIR` the detection batch and
+the segment top-k, `--dog-of DIR` the fused DoG
+(`detection_kernel_alone`), without the result line: to compare two
 checkouts, run parent, change, change, parent in one call.
 """
 
@@ -152,6 +156,29 @@ def cuda_ms_pipelined(fn, reps: int) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e) / per)
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of `fn`: torch.profiler's CUDA self time of
+    the kernels it launches over `reps` calls (after a warm-up), without
+    the host work in front of each launch that `cuda_ms` holds, and that
+    `cuda_ms_pipelined` holds too where the host is slower than the
+    card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / 1e3 / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -474,6 +501,31 @@ def sl_rows_alone() -> None:
                              f"{bad}")
 
 
+def detection_kernel_alone(name: str) -> None:
+    """`--segtopk-of DIR` / `--dog-of DIR`: one detection kernel of DIR's
+    package alone on the detection volume, through the full run's own
+    phases: `phase_detect` (the 8-view detection batch that launches
+    segtopk, its walls and profile) and `phase_segtopk` (the real and
+    dense fields at 32768 x 512 x 4, exactness flags), or `phase_dog` (the
+    detection volume at its effective sigmas and the ragged 21 x 33 x 47
+    case, errors and peak sets), each kernel with single and back-to-back
+    times, plain time and bound. Builds only that kernel; compares two
+    checkouts within one call."""
+    from spim_registration_tpu_torch.ops.kernels import build, dog, segtopk
+
+    (segtopk if name == "segtopk" else dog)._lib()
+    emit({"phase": f"{name}_build", "ptxas": [
+        ln.strip() for ln in build.build_log(name).splitlines()
+        if "registers" in ln or "spill" in ln]})
+    vol = detection_volume()
+    if name == "segtopk":
+        phase_detect(vol)
+        torch.cuda.empty_cache()
+        phase_segtopk(vol)
+    else:
+        phase_dog(vol)
+
+
 def phase_kernels(runner) -> dict:
     """Each kernel against its plain version at the main path's shapes:
     the highest-rank matrix entry of the staged lowrank runner; the z pass
@@ -694,14 +746,27 @@ def phase_dog(vol: np.ndarray) -> dict:
     err_small = float((kd.dog_fused(small, a1, a2)
                        - kd.dog_reference(small, a1, a2)).abs().max())
     tol_small = 1e-5 * float(small.abs().max())
-    times = {"ms": cuda_ms(lambda: kd.dog_fused(v, s1, s2), 20),
+    fused = lambda: kd.dog_fused(v, s1, s2)                # noqa: E731
+    times = {"ms": cuda_ms(fused, 20),
+             "ms_pipelined": cuda_ms_pipelined(fused, 20),
+             "ms_device": device_ms(fused),
              "plain_ms": cuda_ms(lambda: kd.dog_reference(v, s1, s2), 10)}
     _, radii = kd.dog_taps(s1, s2)
     taps = float((2 * radii + 1).sum())
     n_vox = float(v.numel())
     t_bytes = 2 * n_vox * 4 / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_vox * (2 * taps + 1) / PEAK_F32_OPS_PER_S * 1e3
+    # f32 instructions a voxel of the cheapest separable form: x reads one
+    # input for both sigmas, so each mirrored pair is added once for both
+    # (max radius adds) and each sigma takes r + 1 FMAs; y and z read two
+    # inputs, 2r + 1 FMAs a sigma (the z pass folds the difference into
+    # negated taps). An add takes an FMA's issue slot, so the rate is
+    # half the 67 TFLOP/s, which counts an FMA as two operations.
+    (r1z, r1y, r1x), (r2z, r2y, r2x) = radii.tolist()
+    instr = (max(r1x, r2x) + r1x + r2x + 2
+             + 2 * (r1y + r2y + 1) + 2 * (r1z + r2z + 1))
+    t_ops = n_vox * 2 * instr / PEAK_F32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
+    plan = getattr(kd, "dog_plan", None)
     emit({"phase": "dog", "shape": list(vol.shape), "sigma1": list(s1),
           "sigma2": list(s2), "radii": radii.tolist(), "max_abs_err": err,
           "tol": tol, "peaks": [len(pk), len(pp)], "same_peaks": same,
@@ -709,7 +774,15 @@ def phase_dog(vol: np.ndarray) -> dict:
                                    if same and len(pk) else None),
           "ragged": {"shape": [21, 33, 47], "sigma1": a1, "sigma2": a2,
                      "max_abs_err": err_small, "tol": tol_small},
-          "times_ms": times, "taps_per_voxel": taps, "bound_ms": bound,
+          "plan": (plan(*vol.shape, kd._lib().spim_dog_radius(
+              int(radii.max())), torch.cuda.get_device_properties(
+                  0).multi_processor_count)._asdict() if plan else None),
+          "times_ms": times, "taps_per_voxel": taps,
+          "f32_instructions_per_voxel": instr, "bytes_ms": t_bytes,
+          "ops_ms": t_ops, "bound_ms": bound,
+          "frac_of_bound": bound / times["ms"],
+          "frac_of_bound_pipelined": bound / times["ms_pipelined"],
+          "frac_of_bound_device": bound / times["ms_device"],
           "launches": launches})
     if not (err <= tol and err_small <= tol_small):
         raise AssertionError(f"dog_fused differs from its plain version: "
@@ -724,8 +797,9 @@ def phase_dog(vol: np.ndarray) -> dict:
             "replaces": "spim_registration_tpu/ops/pallas/dog.py:115 "
                         "(dog_pallas inner kernel)",
             "launches": launches["dog"], "max_abs_err": max(err, err_small),
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
-            "bound_ms": bound,
+            "ms": times["ms"], "ms_pipelined": times["ms_pipelined"],
+            "ms_device": times["ms_device"],
+            "plain_ms": times["plain_ms"], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
 
@@ -991,8 +1065,9 @@ def phase_segtopk(vol: np.ndarray) -> dict:
     """segtopk against its plain version at the main path's shape (256^3
     = 32768 segments of 512, 4 rounds), exactly, on the detection
     volume's real score field and on a dense adversarial field (few
-    distinct values, so ties in every segment; all--inf segments);
-    times and bound."""
+    distinct values, so ties in every segment; every tenth segment all
+    -inf); single and back-to-back times, plain and library times and
+    the bound."""
     from spim_registration_tpu_torch.ops.extrema import candidate_score
     from spim_registration_tpu_torch.ops.gaussian import (
         difference_of_gaussian,
@@ -1018,27 +1093,38 @@ def phase_segtopk(vol: np.ndarray) -> dict:
         got = st.segment_topk(tiles, ROUNDS)
         want = st.segment_topk_reference(tiles, ROUNDS)
         torch.cuda.synchronize()
+        if name == "real":
+            real_counts = want[2]
         cases[name] = {
             "equal": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
             "max_abs_err": float((got[0] - want[0]).abs().nan_to_num(
                 0.0).max()),
             "finite_entries": int(torch.isfinite(tiles).sum()),
             "overflowing_segments": int((want[2] > ROUNDS).sum())}
-    times = {"ms": cuda_ms(lambda: st.segment_topk(real, ROUNDS), 50),
-             "plain_ms": cuda_ms(
-                 lambda: st.segment_topk_reference(real, ROUNDS), 5),
-             # values and indices only: no counts and no first-index rule
-             "library_ms": cuda_ms(lambda: torch.topk(real, ROUNDS, dim=1),
-                                   20),
-             "dense_ms": cuda_ms(lambda: st.segment_topk(dense, ROUNDS), 50)}
+    times = {}
+    for name, fn in (
+            ("ms", lambda: st.segment_topk(real, ROUNDS)),
+            ("dense_ms", lambda: st.segment_topk(dense, ROUNDS)),
+            # values and indices only: no counts and no first-index rule
+            ("library_ms", lambda: torch.topk(real, ROUNDS, dim=1))):
+        times[name] = cuda_ms(fn, 50)
+        times[name + "_pipelined"] = cuda_ms_pipelined(fn, 50)
+        times[name + "_device"] = device_ms(fn)
+    times["plain_ms"] = cuda_ms(
+        lambda: st.segment_topk_reference(real, ROUNDS), 5)
     n_bytes = S * SEG * 4 + S * ROUNDS * 8 + S * 4
-    n_ops = float(S * SEG * (ROUNDS + 1))   # compares: count + each round
+    # compares the real field needs: the count, then one round a segment
+    # per entry above -inf, at most ROUNDS (past them the answer is fixed)
+    n_ops = float(SEG * (S + int(torch.clamp(real_counts, max=ROUNDS).sum())))
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
     bound = max(t_bytes, t_ops)
     emit({"phase": "kernels", "kernel": "segtopk", "segments": S,
           "seg": SEG, "rounds": ROUNDS, "cases": cases, "times_ms": times,
           "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
+          "frac_of_bound": bound / times["ms"],
+          "frac_of_bound_pipelined": bound / times["ms_pipelined"],
+          "frac_of_bound_device": bound / times["ms_device"],
           "library": "torch.topk(tiles, 4, dim=1): no counts, no "
                      "first-index tie rule"})
     bad = [k for k, c in cases.items() if not all(c["equal"])]
@@ -1050,10 +1136,13 @@ def phase_segtopk(vol: np.ndarray) -> dict:
             "replaces": "spim_registration_tpu/ops/pallas/segtopk.py:31 "
                         "(_seg_topk_kernel)",
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "ms": times["ms"], "ms_pipelined": times["ms_pipelined"],
+            "ms_device": times["ms_device"],
+            "dense_ms": times["dense_ms"], "plain_ms": times["plain_ms"],
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": times["library_ms"]}
+            "library_ms": times["library_ms"],
+            "library_ms_pipelined": times["library_ms_pipelined"]}
 
 
 def phase_match() -> None:
@@ -1314,12 +1403,17 @@ def main() -> int:
                             "result line")
     alone.add_argument("--sl-rows-of", metavar="DIR",
                        help="the same for the fused y/x rows pass")
+    alone.add_argument("--segtopk-of", metavar="DIR",
+                       help="the same for the segment top-k")
+    alone.add_argument("--dog-of", metavar="DIR",
+                       help="the same for the fused Difference-of-Gaussian")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 1
-    other = args.zpass_of or args.sl_rows_of
+    other = (args.zpass_of or args.sl_rows_of or args.segtopk_of
+             or args.dog_of)
     sys.path.insert(0, str(Path(other or ROOT).resolve()))
     import spim_registration_tpu_torch  # noqa: F401  (fails without the repo)
 
@@ -1327,8 +1421,15 @@ def main() -> int:
         phase_card()
         if args.zpass_of:
             zpass_alone()
-        else:
+        elif args.sl_rows_of:
             sl_rows_alone()
+        else:
+            from spim_registration_tpu_torch.utils.device import (
+                set_exact_float32,
+            )
+
+            set_exact_float32()
+            detection_kernel_alone("segtopk" if args.segtopk_of else "dog")
         return 0
 
     # the CP-factor cache stays inside the checkout

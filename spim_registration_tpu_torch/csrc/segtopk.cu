@@ -20,16 +20,44 @@
 //
 // What bounds it on an H100: bytes. At 256^3 the field is 2^24 floats
 // (67 MB) read once, against ~1.2 MB of outputs and a few compares per
-// element: ~0.02 ms of HBM traffic. The design therefore reads the field
-// once with 16-byte coalesced loads and keeps each segment in registers:
-// one warp per segment, each lane holding seg/32 values (16 at seg = 512),
-// loaded as float4 chunks so that a warp reads 512 contiguous bytes per
-// chunk. Each round is a local first-max scan over the lane's registers
-// (positions ascend with the register index) and a 5-step butterfly
-// shuffle of (value, position) in which the larger value wins and, among
-// equal values, the smaller position. The owner lane masks the winner in
-// its registers. The finite count is a warp sum. No shared memory, 8
-// warps per block, any number of segments.
+// element: ~0.02 ms of HBM traffic. The design:
+// - A persistent grid: as many blocks of 8 warps as are resident on the
+//   card at once (its SM count and the occupancy are asked once per
+//   device); warp w of the grid handles segments w, w + warps, w + 2 warps,
+//   ...
+// - Loads overlap selection through a double buffer split between
+//   registers and shared memory: one warp holds its current segment in
+//   registers, seg/32 values a lane (read from its shared slot as float4
+//   chunks, conflict-free), and as soon as every lane has read the slot,
+//   lane 0 copies the warp's next segment into it with one 1-D TMA copy
+//   (`cp.async.bulk`, completing on the slot's mbarrier) while the warp
+//   selects. The slot costs no registers and 2 KB a warp.
+// - An exact short cut for segments that run out. Once the entries above
+//   -inf are masked, every position holds -inf and each further round of
+//   the contract gives (-inf, s * seg + 0). So a warp whose count is c
+//   runs min(c, rounds) real rounds and writes the rest directly, one
+//   round a lane. The real score field is almost all -inf (~400 finite
+//   entries in 2^24), so nearly every segment costs one count and a
+//   store. A segment holding a NaN runs every round (NaN is not counted
+//   and compares false, so the short cut's premise fails).
+// - Real rounds without a rescan per round, since a dense field (every
+//   segment runs every round) is bound by issue: the rounds take the
+//   segment's entries in (value desc, position asc) order, so each lane
+//   caches its first two entries in that order from one scan of its
+//   registers (positions ascend with the register index). A round is a
+//   warp maximum of the lanes' first entries (5 shuffles), the smallest
+//   position among the lanes holding it (5 shuffles; -0 == +0, as the
+//   float compare has it), the winner's own value broadcast, and a pop in
+//   the owner lane: its second entry moves up, and only when it wins
+//   again before a rescan does it rescan the entries after the last one
+//   taken. No register is masked.
+// - NaN fields are outside the contract (`candidate_score` maps a NaN to
+//   -inf, and `segment_topk_reference` would rank it first). A segment
+//   holding one takes the first port's rounds (a first-max scan and a
+//   butterfly of (value, position) pairs, masking the winner), whose
+//   compares define its outcome, so what the first port gave for it is
+//   unchanged; a CUDA-marked test holds it to a transliteration of them.
+//   The finite count is a warp sum.
 //
 // Plain C interface for ctypes; every launch returns cudaGetLastError().
 
@@ -41,6 +69,68 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Lane 0: one segment (`bytes`, a multiple of 16) into the warp's slot,
+// completing on the slot's mbarrier. The slot was last read by the warp's
+// generic loads, hence the proxy fence.
+__device__ __forceinline__ void copy_segment(float* dst, const float* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One round of the contract as the first port ran it, kept for segments
+// holding a NaN (their outcome is that of these compares): a first-max
+// scan over the lane's registers and a 5-step butterfly of (value,
+// position) in which the larger value wins and, among equal values, the
+// smaller position; the owner masks the winner. Returns the position.
+template <int VPL>
+__device__ __forceinline__ int round_butterfly(float (&v)[VPL], int lane,
+                                               float& best) {
+  best = v[0];
+  int bi = 0;
+#pragma unroll
+  for (int i = 1; i < VPL; ++i) {
+    if (v[i] > best) {
+      best = v[i];
+      bi = i;
+    }
+  }
+  int bpos = (bi >> 2) * 128 + lane * 4 + (bi & 3);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(FULL, best, off);
+    const int op = __shfl_xor_sync(FULL, bpos, off);
+    if (ov > best || (ov == best && op < bpos)) {
+      best = ov;
+      bpos = op;
+    }
+  }
+  if (((bpos & 127) >> 2) == lane) {
+    const int own = (bpos >> 7) * 4 + (bpos & 3);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i)
+      if (i == own) v[i] = -CUDART_INF_F;
+  }
+  return bpos;
+}
 
 template <int VPL>  // values per lane: seg = 32 * VPL
 __global__ void __launch_bounds__(THREADS)
@@ -49,65 +139,157 @@ seg_topk_kernel(const float* __restrict__ field, float* __restrict__ vals,
                 long long S, int rounds) {
   constexpr int SEG = 32 * VPL;
   constexpr int CHUNKS = VPL / 4;  // float4 chunks per lane
+  __shared__ __align__(128) float slot[WARPS][SEG];
+  __shared__ __align__(8) uint64_t bars[WARPS];
+
   const int lane = threadIdx.x & 31;
-  const long long s =
-      static_cast<long long>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const long long stride = static_cast<long long>(gridDim.x) * WARPS;
+  long long s = static_cast<long long>(blockIdx.x) * WARPS + warp;
   if (s >= S) return;  // whole warps exit together
-
-  // register i = 4 * c + e holds segment position c * 128 + lane * 4 + e
-  const float4* src =
-      reinterpret_cast<const float4*>(field + s * SEG) + lane;
-  float v[VPL];
-#pragma unroll
-  for (int c = 0; c < CHUNKS; ++c) {
-    const float4 q = src[c * 32];
-    v[4 * c + 0] = q.x;
-    v[4 * c + 1] = q.y;
-    v[4 * c + 2] = q.z;
-    v[4 * c + 3] = q.w;
+  const uint32_t bar = smem_addr(&bars[warp]);
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    copy_segment(slot[warp], field + s * SEG, SEG * 4, bar);
   }
+  __syncwarp();
 
-  int finite = 0;
+  for (int it = 0; s < S; s += stride, ++it) {
+    mbar_wait(bar, it & 1);
+    // register i = 4 * c + e holds segment position c * 128 + lane * 4 + e
+    float v[VPL];
+    const float4* src = reinterpret_cast<const float4*>(slot[warp]);
 #pragma unroll
-  for (int i = 0; i < VPL; ++i) finite += (v[i] > -CUDART_INF_F) ? 1 : 0;
-  finite = __reduce_add_sync(0xffffffffu, finite);
-  if (lane == 0) counts[s] = finite;
+    for (int c = 0; c < CHUNKS; ++c) {
+      const float4 q = src[c * 32 + lane];
+      v[4 * c + 0] = q.x;
+      v[4 * c + 1] = q.y;
+      v[4 * c + 2] = q.z;
+      v[4 * c + 3] = q.w;
+    }
+    // every lane holds its values: the slot takes the next segment while
+    // this one is selected from registers
+    __syncwarp();
+    if (lane == 0 && s + stride < S)
+      copy_segment(slot[warp], field + (s + stride) * SEG, SEG * 4, bar);
 
-  const int base = static_cast<int>(s) * SEG;
-  for (int r = 0; r < rounds; ++r) {
-    // first maximum among this lane's registers (ascending positions)
-    float best = v[0];
-    int bi = 0;
+    int finite = 0;
+    bool nan = false;
 #pragma unroll
-    for (int i = 1; i < VPL; ++i) {
-      if (v[i] > best) {
-        best = v[i];
-        bi = i;
+    for (int i = 0; i < VPL; ++i) {
+      finite += (v[i] > -CUDART_INF_F) ? 1 : 0;
+      nan |= v[i] != v[i];
+    }
+    finite = __reduce_add_sync(FULL, finite);
+    if (lane == 0) counts[s] = finite;
+
+    const int base = static_cast<int>(s) * SEG;
+    float* vs = vals + s * rounds;
+    int* is = idx + s * rounds;
+    if (__any_sync(FULL, nan)) {
+      for (int r = 0; r < rounds; ++r) {
+        float best;
+        const int bpos = round_butterfly(v, lane, best);
+        if (lane == 0) {
+          vs[r] = best;
+          is[r] = base + bpos;
+        }
+      }
+      continue;
+    }
+    const int real = min(finite, rounds);
+    if (real > 0) {
+      // each lane's first two entries in (value desc, position asc) order
+      // among those after its last taken one (lv, li): taking one is a
+      // pop, and a lane rescans only when it wins twice in a row of its
+      // cache
+      float b1 = -CUDART_INF_F, b2 = -CUDART_INF_F;
+      int i1 = VPL, i2 = VPL;
+#pragma unroll
+      for (int i = 0; i < VPL; ++i) {
+        const bool c1 = v[i] > b1, c2 = v[i] > b2;
+        b2 = c1 ? b1 : (c2 ? v[i] : b2);
+        i2 = c1 ? i1 : (c2 ? i : i2);
+        b1 = c1 ? v[i] : b1;
+        i1 = c1 ? i : i1;
+      }
+      bool stale = false;  // b2 is not known (one pop since the scan)
+      for (int r = 0; r < real; ++r) {
+        float m = b1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        int bpos = b1 == m ? (i1 >> 2) * 128 + lane * 4 + (i1 & 3) : SEG;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          bpos = min(bpos, __shfl_xor_sync(FULL, bpos, off));
+        const int owner = (bpos & 127) >> 2;
+        const float won = __shfl_sync(FULL, b1, owner);
+        if (lane == 0) {
+          vs[r] = won;
+          is[r] = base + bpos;
+        }
+        if (owner == lane) {
+          const float lv = b1;
+          const int li = i1;
+          if (!stale) {
+            b1 = b2;
+            i1 = i2;
+            stale = true;
+          } else {
+            // rescan the entries after (lv, li) in the order
+            b1 = b2 = -CUDART_INF_F;
+            i1 = i2 = VPL;
+#pragma unroll
+            for (int i = 0; i < VPL; ++i) {
+              const bool rest = v[i] < lv || (v[i] == lv && i > li);
+              const bool c1 = rest && v[i] > b1, c2 = rest && v[i] > b2;
+              b2 = c1 ? b1 : (c2 ? v[i] : b2);
+              i2 = c1 ? i1 : (c2 ? i : i2);
+              b1 = c1 ? v[i] : b1;
+              i1 = c1 ? i : i1;
+            }
+            stale = false;
+          }
+        }
       }
     }
-    int bpos = (bi >> 2) * 128 + lane * 4 + (bi & 3);
-    // butterfly: larger value wins; equal values -> smaller position
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int op = __shfl_xor_sync(0xffffffffu, bpos, off);
-      if (ov > best || (ov == best && op < bpos)) {
-        best = ov;
-        bpos = op;
-      }
-    }
-    if (lane == 0) {
-      vals[s * rounds + r] = best;
-      idx[s * rounds + r] = base + bpos;
-    }
-    // the owner masks the winner by position
-    if (((bpos & 127) >> 2) == lane) {
-      const int own = (bpos >> 7) * 4 + (bpos & 3);
-#pragma unroll
-      for (int i = 0; i < VPL; ++i)
-        if (i == own) v[i] = -CUDART_INF_F;
+    // the segment is all -inf now: the first maximal position is 0
+    for (int r = real + lane; r < rounds; r += 32) {
+      vs[r] = -CUDART_INF_F;
+      is[r] = base;
     }
   }
+}
+
+// The persistent grid of one width: as many blocks as are resident on
+// the current device at once (SM count x occupancy, asked once per
+// device), and no more than one warp a segment.
+template <int VPL>
+int launch(const float* f, float* v, int* i, int* c, long long S, int rounds,
+           cudaStream_t st) {
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = dev < 64 ? resident[dev] : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, seg_topk_kernel<VPL>, THREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    blocks = sms * (per_sm < 1 ? 1 : per_sm);
+    if (dev < 64) resident[dev] = blocks;
+  }
+  const long long need = (S + WARPS - 1) / WARPS;
+  const long long full = blocks;
+  const unsigned grid = static_cast<unsigned>(need < full ? need : full);
+  seg_topk_kernel<VPL><<<grid, THREADS, 0, st>>>(f, v, i, c, S, rounds);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -120,26 +302,18 @@ extern "C" {
 int spim_segtopk(const void* field, void* vals, void* idx, void* counts,
                  long long S, int seg, int rounds, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S <= 0 || rounds <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((S + WARPS - 1) / WARPS);
+  if (S <= 0 || rounds <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* f = static_cast<const float*>(field);
   float* v = static_cast<float*>(vals);
   int* i = static_cast<int*>(idx);
   int* c = static_cast<int*>(counts);
   switch (seg) {
-    case 128:
-      seg_topk_kernel<4><<<grid, THREADS, 0, st>>>(f, v, i, c, S, rounds);
-      break;
-    case 256:
-      seg_topk_kernel<8><<<grid, THREADS, 0, st>>>(f, v, i, c, S, rounds);
-      break;
-    case 512:
-      seg_topk_kernel<16><<<grid, THREADS, 0, st>>>(f, v, i, c, S, rounds);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 128: return launch<4>(f, v, i, c, S, rounds, st);
+    case 256: return launch<8>(f, v, i, c, S, rounds, st);
+    case 512: return launch<16>(f, v, i, c, S, rounds, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -9,15 +9,16 @@ copy of the volume).
 `dog_reference` is the plain PyTorch version (`ops.gaussian`'s
 `difference_of_gaussian`, the reference kernel's contract). `dog_fused`
 takes it only for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises — there is no fallback. Launches are counted in
-`dog_fused.launches`. The detection path keeps `difference_of_gaussian`,
-as the reference's does.
+kernel, sized by `dog_plan` (tile, z chunk), or raises —
+there is no fallback. Launches are counted in `dog_fused.launches`. The
+detection path keeps `difference_of_gaussian`, as the reference's does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,15 +29,55 @@ from spim_registration_tpu_torch.ops.gaussian import (
     gaussian_kernel_1d,
 )
 from spim_registration_tpu_torch.ops.kernels import build
+from spim_registration_tpu_torch.utils.device import sm_count
 
 # taps per sigma and axis of csrc/dog.cu's table (radius <= 15)
 MAX_TAPS = 32
-# blocks the z chunking aims for per streaming multiprocessor (512
-# threads each): more z chunks re-read more halo planes from L2 but keep
-# more plane loads in flight
-_BLOCKS_PER_SM = 4
-# (y, x) tile of one block in csrc/dog.cu
-_TILE_YX = 32
+# the radii csrc/dog.cu is compiled for (taps zero-padded to the next)
+RADII = (2, 4, 7, 11, 15)
+# csrc/dog.cu's block: 512 threads in 16 row groups of V rows x 32 columns
+_TILE_X = 32
+_ROW_GROUPS = 16
+_STAGES = 4
+_ALIGN = 128
+
+
+class DogPlan(NamedTuple):
+    """A launch of csrc/dog.cu: the (ty, 32) output tile, tz output planes
+    a block and the block's shared bytes."""
+    ty: int
+    tz: int
+    smem: int
+
+
+def _smem(R: int) -> int:
+    """csrc/dog.cu's `smem_bytes`: alignment, the ring of 4 plane windows
+    ((ty + 2R) x (32 + 2H) floats, H = R rounded up to 4, each slot
+    rounded to 128 bytes), two x-pass buffers of both sigmas, an mbarrier
+    a slot and the reflected row and column tables."""
+    wy = _ROW_GROUPS * (4 if R <= 7 else 2) + 2 * R
+    wx = _TILE_X + 2 * ((R + 3) & ~3)
+    slot = -(-wy * wx * 4 // _ALIGN) * _ALIGN
+    return _ALIGN + _STAGES * slot + 4 * wy * _TILE_X * 4 + _STAGES * 8 \
+        + (wy + wx) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def dog_plan(Z: int, Y: int, X: int, R: int, sms: int) -> DogPlan:
+    """The launch of csrc/dog.cu for a (Z, Y, X) volume at compiled radius
+    R on a card of `sms` streaming multiprocessors. A block (one per SM:
+    512 threads with (2R + 1) x V accumulators each) owns a (16 V) x 32
+    tile, V = 4 rows a thread up to R = 7 and 2 above; the z chunks split
+    the volume until the grid fills the card once, but no chunk is
+    thinner than its 2R halo (each chunk re-reads 2R planes)."""
+    if R not in RADII:
+        raise ValueError(f"dog_plan: radius {R} is not one of {RADII}")
+    if min(Z, Y, X) < 1 or sms < 1:
+        raise ValueError(f"dog_plan: cannot take {(Z, Y, X)}, sms={sms}")
+    ty = _ROW_GROUPS * (4 if R <= 7 else 2)
+    nx, ny = -(-X // _TILE_X), -(-Y // ty)
+    chunks = max(1, min(sms // (nx * ny), Z // (2 * R)))
+    return DogPlan(ty, -(-Z // chunks), _smem(R))
 
 
 def dog_reference(vol: torch.Tensor, sigma1, sigma2) -> torch.Tensor:
@@ -63,6 +104,15 @@ def dog_taps(sigma1, sigma2):
     return taps, radii
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_taps(sigma1: tuple, sigma2: tuple):
+    """`dog_taps` of per-axis sigmas and the host addresses a launch
+    passes (the arrays stay alive in the cache): made once per sigma pair
+    instead of in front of every launch."""
+    taps, radii = dog_taps(sigma1, sigma2)
+    return taps, radii, taps.ctypes.data, radii.ctypes.data
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("dog")
@@ -70,22 +120,21 @@ def _lib():
     lib.spim_dog_max_taps.restype = ctypes.c_int
     lib.spim_dog_radius.argtypes = [ctypes.c_int]
     lib.spim_dog_radius.restype = ctypes.c_int
-    lib.spim_dog.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+    lib.spim_dog_tile_rows.argtypes = [ctypes.c_int]
+    lib.spim_dog_tile_rows.restype = ctypes.c_int
+    lib.spim_dog_smem.argtypes = [ctypes.c_int]
+    lib.spim_dog_smem.restype = ctypes.c_int
+    lib.spim_dog.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 3
     lib.spim_dog.restype = ctypes.c_int
     if lib.spim_dog_max_taps() != MAX_TAPS:
         raise RuntimeError("csrc/dog.cu taps differ from MAX_TAPS")
+    for R in RADII:
+        plan = dog_plan(1, 1, 1, R, 1)
+        if lib.spim_dog_tile_rows(R) != plan.ty \
+                or lib.spim_dog_smem(R) != plan.smem:
+            raise RuntimeError("csrc/dog.cu's block differs from dog_plan")
     return lib
-
-
-def _z_chunk(Z: int, Y: int, X: int, r: int, device) -> int:
-    """Output planes per block: enough z chunks to give every SM
-    `_BLOCKS_PER_SM` blocks, but no chunk thinner than its 2 r halo."""
-    tiles = -(-Y // _TILE_YX) * -(-X // _TILE_YX)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, min(-(-_BLOCKS_PER_SM * sms // tiles),
-                        Z // max(2 * r, 1)))
-    return -(-Z // chunks)
 
 
 def dog_fused(vol: torch.Tensor, sigma1, sigma2) -> torch.Tensor:
@@ -104,7 +153,9 @@ def dog_fused(vol: torch.Tensor, sigma1, sigma2) -> torch.Tensor:
             or vol.numel() >= 2 ** 31:
         raise ValueError("dog_fused: the volume must be contiguous, "
                          "non-empty and below 2^31 voxels")
-    taps, radii = dog_taps(sigma1, sigma2)
+    _, radii, taps_p, radii_p = _launch_taps(
+        tuple(map(float, _per_axis(sigma1))),
+        tuple(map(float, _per_axis(sigma2))))
     lib = _lib()
     r = lib.spim_dog_radius(int(radii.max()))
     if r < 0:
@@ -112,10 +163,11 @@ def dog_fused(vol: torch.Tensor, sigma1, sigma2) -> torch.Tensor:
                          f"got {radii.tolist()}")
     Z, Y, X = vol.shape
     out = torch.empty_like(vol)
-    tz = _z_chunk(Z, Y, X, r, vol.device)
+    plan = dog_plan(Z, Y, X, r, sm_count(vol.device))
+    tma = X % 4 == 0 and vol.data_ptr() % 16 == 0
     err = lib.spim_dog(
-        vol.data_ptr(), out.data_ptr(), Z, Y, X, tz,
-        taps.ctypes.data, radii.ctypes.data,
+        vol.data_ptr(), out.data_ptr(), Z, Y, X, plan.tz, int(tma), taps_p,
+        radii_p,
         torch.cuda.current_stream(vol.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"dog_fused: CUDA launch failed with error {err}")

@@ -9,8 +9,11 @@ finite entries — the input of the overflow guard in
 
 `segment_topk_reference` is the plain PyTorch version (the reference's XLA
 round loop plus the counts). The wrapper takes it only for tensors on the
-CPU; for CUDA tensors it launches `csrc/segtopk.cu` or raises — there is
-no fallback. Launches are counted in `segment_topk.launches`.
+CPU; for CUDA tensors it launches `csrc/segtopk.cu` (a persistent grid
+of the blocks resident on the card at once) or raises — there is no
+fallback. Launches are counted in `segment_topk.launches`. Past a segment's count every round
+gives (-inf, s * seg): the kernel writes those rounds without running
+them.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ without being asked to.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -26,6 +28,13 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the host")
         set_exact_float32()
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device:
+    `dog_fused` plans its grid from it at every launch)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def set_exact_float32() -> None:

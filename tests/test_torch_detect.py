@@ -120,6 +120,37 @@ def test_segment_topk_reference_matches_pallas_interpret():
     assert gi[11].tolist() == [11 * seg + r for r in range(rounds)]
 
 
+@pytest.mark.parametrize("count", [0, 1, 4, 5])
+def test_segment_topk_rounds_past_the_count_are_fixed(count):
+    """The contract's short cut, which csrc/segtopk.cu takes: once a
+    segment's entries above -inf are masked, every further round gives
+    (-inf, s * seg). So min(count, rounds) real rounds and then that pair
+    equal the full rounds, on seeded segments holding `count` entries
+    with ties, at the count boundary too (values from {1/4, 1/2})."""
+    rng = np.random.default_rng(20 + count)
+    S, seg, rounds = 48, 128, 4
+    x = np.full((S, seg), -np.inf, np.float32)
+    for s in range(S):
+        x[s, rng.choice(seg, size=count, replace=False)] = \
+            rng.integers(1, 3, count) / 4
+    vals, idx, counts = (a.numpy() for a in
+                         segtopk.segment_topk_reference(_t(x), rounds))
+    base = np.arange(S, dtype=np.int32)[:, None] * seg
+    assert (counts == count).all()
+    past = np.arange(rounds)[None, :] >= counts[:, None]
+    assert past.any() == (count < rounds)
+    assert (vals[past] == -np.inf).all()
+    assert (idx - base)[past].tolist() == [0] * int(past.sum())
+    real = min(count, rounds)
+    short_v = np.full((S, rounds), -np.inf, np.float32)
+    short_i = np.repeat(base, rounds, axis=1)
+    if real:
+        sv, si, _ = segtopk.segment_topk_reference(_t(x), real)
+        short_v[:, :real], short_i[:, :real] = sv.numpy(), si.numpy()
+    np.testing.assert_array_equal(short_v, vals)
+    np.testing.assert_array_equal(short_i, idx)
+
+
 def _field(kind, rng, n=40 * 512 + 77):
     score = np.full(n, -np.inf, np.float32)
     if kind == "sparse":

@@ -67,6 +67,41 @@ def test_dog_taps_are_the_reference_kernels():
         kd.dog_taps(11.0, 12.0)
 
 
+@pytest.mark.parametrize("R", kd.RADII)
+def test_dog_plan_covers_the_volume_within_shared_memory(R):
+    """`dog_plan` at every compiled radius, on the detection volume, tiny,
+    ragged and anisotropic shapes and several SM counts: the grid's tiles
+    and z chunks (as csrc/dog.cu's launch makes them) cover the volume
+    exactly, no chunk is thinner than its 2R halo unless there is one
+    chunk, the grid does not outgrow the card where z chunks are what it
+    adds, and the shared bytes fit the card's 227 KB."""
+    for shape in ((256, 256, 256), (21, 33, 47), (1, 1, 1), (9, 40, 3),
+                  (70, 65, 97), (10, 20, 30), (24, 100, 96),
+                  (300, 150, 100)):
+        Z, Y, X = shape
+        for sms in (1, 8, 132):
+            p = kd.dog_plan(Z, Y, X, R, sms)
+            nx, ny, nz = -(-X // 32), -(-Y // p.ty), -(-Z // p.tz)
+            assert p.ty == (64 if R <= 7 else 32)
+            assert (nz - 1) * p.tz < Z <= nz * p.tz
+            assert nz == 1 or p.tz >= 2 * R
+            assert nz == 1 or nx * ny * nz <= sms
+            assert p.smem <= 232448
+    with pytest.raises(ValueError, match="radius"):
+        kd.dog_plan(8, 8, 8, 6, 132)
+
+
+def test_dog_plan_of_the_detection_configuration():
+    """The detection volume (256^3, radii 6 and 7 -> compiled 7) on an
+    H100's 132 SMs: 64 x 32 tiles, 4 z chunks of 64 planes (128 blocks,
+    one wave), a ring of 4 plane windows of 78 x 48 floats."""
+    _, radii = kd.dog_taps(1.8, 1.8 * 2 ** 0.25)
+    assert radii.max() == 7
+    p = kd.dog_plan(256, 256, 256, 7, 132)
+    assert (p.ty, p.tz) == (64, 64)
+    assert p.smem == 128 + 4 * 14976 + 4 * 78 * 32 * 4 + 32 + (78 + 48) * 4
+
+
 def _zfused_case(shape, rank, dtype):
     rng = np.random.default_rng(0)
     k = rng.random((7, 9, 5))

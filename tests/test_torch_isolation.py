@@ -340,12 +340,113 @@ def test_segtopk_matches_plain_on_cuda():
         assert st.segment_topk.launches == n0 + 1
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), (seg, S, rounds)
+    # more segments than the persistent grid has warps (a few thousand on
+    # an H100), and a count that is no multiple of it: segments with 0,
+    # 1, `rounds` and `rounds + 1` entries, ties at the count boundary
+    S, seg, rounds = 3 * 8448 + 517, 512, 4
+    x = np.full((S, seg), -np.inf, np.float32)
+    count = rng.choice([0, 1, rounds, rounds + 1], size=S)
+    for s in np.nonzero(count)[0]:
+        x[s, rng.choice(seg, size=count[s], replace=False)] = \
+            rng.integers(1, 3, count[s]) / 4
+    x[S - 1] = rng.integers(0, 4, seg) / 4       # a dense last segment
+    x[S - 2] = -np.inf                           # -0 before +0: a tie
+    x[S - 2, [3, 300]] = -0.0
+    x[S - 2, [7, 200]] = 0.0
+    t = torch.from_numpy(x)
+    want = st.segment_topk_reference(t, rounds)
+    got = st.segment_topk(t.to(dev), rounds)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), S
+    # the values bit for bit: the sign of each zero too
+    assert torch.equal(got[0].cpu().view(torch.int32),
+                       want[0].view(torch.int32))
+    assert got[1][S - 2].cpu().tolist() == [(S - 2) * seg + i
+                                            for i in (3, 7, 200, 300)]
     with pytest.raises(ValueError, match="cannot take"):
         st.segment_topk(torch.zeros((4, 100), device=dev))
     with pytest.raises(ValueError, match="float32"):
         st.segment_topk(torch.zeros((4, 512), device=dev,
                                     dtype=torch.float64))
     torch.cuda.synchronize()
+
+
+def _segtopk_first_port(x, rounds):
+    """numpy transliteration of the first CUDA port of segtopk (one warp a
+    segment, lane l holding positions (i >> 2) * 128 + 4 l + (i & 3)):
+    per round a first-max scan of each lane's registers with `>`, a
+    5-step xor butterfly in which the partner's (value, position) wins if
+    larger or equal at a smaller position, lane 0's pair written, and
+    every lane whose own winner it holds masks it. With a NaN in the
+    segment these compares, not the contract, define the outcome."""
+    S, seg = x.shape
+    lane = np.arange(32)
+    reg = np.arange(seg // 32)
+    pos = (reg[None, :] >> 2) * 128 + lane[:, None] * 4 + (reg[None, :] & 3)
+    vals = np.empty((S, rounds), np.float32)
+    idx = np.empty((S, rounds), np.int32)
+    counts = np.empty(S, np.int32)
+    for s in range(S):
+        v = x[s][pos].copy()
+        counts[s] = int((v > -np.inf).sum())
+        for r in range(rounds):
+            best, bi = v[:, 0].copy(), np.zeros(32, np.int64)
+            for i in reg[1:]:
+                m = v[:, i] > best
+                best[m], bi[m] = v[m, i], i
+            bpos = (bi >> 2) * 128 + lane * 4 + (bi & 3)
+            for off in (16, 8, 4, 2, 1):
+                ov, op = best[lane ^ off], bpos[lane ^ off]
+                take = (ov > best) | ((ov == best) & (op < bpos))
+                best, bpos = np.where(take, ov, best), np.where(take, op, bpos)
+            vals[s, r], idx[s, r] = best[0], s * seg + bpos[0]
+            own = ((bpos & 127) >> 2) == lane
+            v[lane[own], ((bpos >> 7) * 4 + (bpos & 3))[own]] = -np.inf
+    return vals, idx, counts
+
+
+def _nan_free_field(seed, S, seg):
+    rng = np.random.default_rng(seed)
+    x = np.full((S, seg), -np.inf, np.float32)
+    pos = rng.choice(S * seg, size=S * 6, replace=False)
+    x.reshape(-1)[pos] = rng.integers(1, 4, S * 6) / 4.0      # many ties
+    x[1] = rng.integers(0, 3, seg) / 2.0                        # dense
+    x[2] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("seg", [128, 512])
+def test_segtopk_first_port_transliteration_is_the_contract(seg):
+    """On fields without NaN the first port's compares give the contract
+    (`segment_topk_reference`) bit for bit, so the transliteration that
+    pins NaN segments on the card is the first port's kernel."""
+    x = _nan_free_field(seg, 24, seg)
+    want = st.segment_topk_reference(torch.from_numpy(x), 5)
+    for g, w in zip(_segtopk_first_port(x, 5), want):
+        np.testing.assert_array_equal(g, w.numpy())
+
+
+@pytest.mark.cuda
+def test_segtopk_nan_segments_keep_the_first_ports_rounds():
+    """NaN fields are outside segtopk's contract (detection's scores hold
+    none); a segment holding a NaN runs the first port's rounds, so its
+    outputs are the first port's bit for bit: NaN at the front, the back
+    and among ties, one and several a segment, beside NaN-free ones."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    for seg, rounds in ((512, 4), (256, 6), (128, 3)):
+        x = _nan_free_field(seg + 1, 40, seg)
+        for s in range(3, 40, 2):
+            x[s, rng.choice(seg, size=1 + s % 4, replace=False)] = np.nan
+        x[5, 0] = x[7, seg - 1] = np.nan
+        got = st.segment_topk(torch.from_numpy(x).to(dev), rounds)
+        want = _segtopk_first_port(x, rounds)
+        g0 = got[0].cpu().numpy()
+        np.testing.assert_array_equal(g0.view(np.int32),
+                                      want[0].view(np.int32))
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1])
+        np.testing.assert_array_equal(got[2].cpu().numpy(), want[2])
 
 
 @pytest.mark.cuda
@@ -415,9 +516,38 @@ def test_dog_kernel_matches_plain_on_cuda():
 
     set_exact_float32()
     rng = np.random.default_rng(2)
-    for shape, s1, s2 in (((21, 33, 47), (1.2, 1.8, 1.8), (1.5, 2.2, 2.2)),
-                          ((70, 65, 97), 1.8, 1.8 * 2 ** 0.25),
-                          ((9, 40, 3), (0.0, 1.0, 2.0), (0.5, 1.5, 2.5))):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def tma_tiles(shape, R, ty):
+        """csrc/dog.cu's TMA tiles: X % 4 == 0 and every cell of the
+        tile's window mirrors a cell of the window (period 2(n - 1))."""
+        Z, Y, X = shape
+        h = (R + 3) // 4 * 4
+
+        def own(o, w, n):
+            k = np.arange(o, o + w)
+            src = (n - 1) - np.abs(k % max(2 * n - 2, 1) - (n - 1)) \
+                if n > 1 else 0 * k
+            return bool(np.all((src >= o) & (src < o + w)))
+
+        return 0 if X % 4 else sum(
+            own(i * 32 - h, 32 + 2 * h, X) and own(j * ty - R, ty + 2 * R, Y)
+            for i in range(-(-X // 32)) for j in range(-(-Y // ty)))
+
+    # (shape, sigma1, sigma2, whether some tiles load by TMA): X % 4 != 0
+    # (cp.async only), X smaller than a tile, interior tiles by TMA beside
+    # face tiles, Z < 2R with Y smaller than a tile, radius 15 (Z < 2R)
+    for shape, s1, s2, tma in (
+            ((21, 33, 47), (1.2, 1.8, 1.8), (1.5, 2.2, 2.2), False),
+            ((70, 65, 97), 1.8, 1.8 * 2 ** 0.25, False),
+            ((9, 40, 3), (0.0, 1.0, 2.0), (0.5, 1.5, 2.5), False),
+            ((40, 150, 100), 1.8, 1.8 * 2 ** 0.25, True),
+            ((10, 20, 30), 1.8, 1.8 * 2 ** 0.25, False),
+            ((24, 100, 96), 4.0, 4.9, True)):
+        _, radii = kd.dog_taps(s1, s2)
+        R = kd._lib().spim_dog_radius(int(radii.max()))
+        plan = kd.dog_plan(*shape, R, sms)
+        assert (tma_tiles(shape, R, plan.ty) > 0) == tma, (shape, plan)
         v = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
                              ).cuda()
         n0 = kd.dog_fused.launches
