@@ -52,14 +52,25 @@ package) and exits nonzero on any failure:
    anisotropic volume, against its plain version, with identical peak
    sets; the fully fused lowrank conv (`conv_lowrank_folded_zfused`) is
    held in phase 3 on the staged highest-rank matrices and at 208^3;
-9. the headless CLI over one dataset XML (simulate 4 x 256^3 -> detect ->
-   register -> fuse -> deconvolve with the lowrank backend and with the
-   FFT backend -> info), each verb through `cli.main` in-process:
-   per-verb walls, kernel launches, the registration against the
-   simulated truth, the sharpening and lowrank against FFT.
+9. the out-of-core deconvolution (`phase_ooc`): the blocked lowrank
+   engine over raw disk stores at the RL configuration (4 x 256^3, 20
+   iterations, 4 blocks) and on a 512^3 box x 4 views (8 blocks, 2
+   iterations), each against the in-memory engine, with walls,
+   voxel-updates/s, kernel launches and the device's idle share over one
+   iteration (phase 3 also holds `zfused` against the zpass + sl_rows
+   pair at rank 22 on 512^3);
+10. the headless CLI over one dataset XML (simulate 4 x 256^3 -> detect
+   -> register -> fuse -> deconvolve with the lowrank backend and with
+   the FFT backend -> info; then `fuse --out-of-core`, `deconvolve
+   --out-of-core --block-z 64` on a 256^3 box, `tune`, `icp-refine`),
+   each verb through `cli.main` in-process: per-verb walls, kernel
+   launches, the registration against the simulated truth, the
+   sharpening, lowrank against FFT and each out-of-core verb against its
+   in-memory run.
 
-Each phase prints one JSON line; then a `kernels` JSON line, the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+Each phase prints one JSON line, and a `walls` line gives every phase's
+wall; then a `kernels` JSON line, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`.
 
 `--zpass-of DIR` runs only the card phase and the z pass of DIR's
 package (`zpass_alone`), `--sl-rows-of DIR` the rows pass of DIR's
@@ -98,6 +109,17 @@ KERNEL_TOL_MAX = 2.0 ** -7       # x max|out|: one bf16 ULP of the scale
 # the CLI phase's lowrank deconvolution against the FFT one: its PSFs are
 # approximated to psf_rank_tol = 1e-2, so that is the limit of the output
 CLI_LOWRANK_TOL = 1e-2
+# the out-of-core engine against the in-memory one (both lowrank bf16 on
+# the kernels: the same matrices, rounding flips of one bf16 ULP over the
+# iterations); block height and the size only a blocked engine is built
+# for, with its iterations cut from N_ITER for the time limit
+OOC_TOL = 3e-3
+OOC_BLOCK_Z = 64
+OOC_BIG, OOC_BIG_ITERS = 512, 2
+# streaming fusion against in-memory fusion (f32, summation order)
+CLI_OOC_FUSE_TOL = 1e-5
+# `icp_refine`'s matrix on the card against the CPU's (f32 fits)
+CLI_ICP_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -667,6 +689,8 @@ def phase_zfused(entry, psi) -> dict:
         lc.conv_lowrank_folded_zfused(vol, *mats, hz=9),
         conv_lowrank_folded(vol, *mats))
     del mats, vol
+    big = zfused_512(rng)
+    cases["box512_vs_pair"] = big.pop("error")
     vm = psi.to(torch.bfloat16).contiguous()
     times = {"ms": cuda_ms(lambda: lc.zfused(vm, Mz, My, Mx, rz, ry, rx),
                            10),
@@ -685,7 +709,7 @@ def phase_zfused(entry, psi) -> dict:
                                                                     rx],
           "shape": [Z, Y, X], "cases": cases, "times_ms": times,
           "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
-          "launches": launches})
+          "launches": launches, "box512": big})
     bad = [k for k, c in cases.items() if not c["ok"]]
     if bad:
         raise AssertionError(f"zfused disagrees on {bad}")
@@ -698,8 +722,42 @@ def phase_zfused(entry, psi) -> dict:
             "launches": launches["zfused"],
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
             "ms": times["ms"], "plain_ms": times["plain_ms"],
-            "pair_ms": times["pair_ms"], "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "pair_ms": times["pair_ms"], "box512_ms": big["ms"],
+            "box512_pair_ms": big["pair_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def zfused_512(rng) -> dict:
+    """`zfused` at rank 22 on a 512^3 box (19 taps per axis, seeded
+    factors, half-supports 9), where the zpass + sl_rows pair holds a
+    5.9 GB `a` intermediate (two z-slabs under `_A_SLAB_BYTES`): its
+    error against the pair and both times (`cuda_ms`) in one call."""
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.separable import folded_conv_matrices
+
+    n, R, h = OOC_BIG, 22, 9
+    mats = [torch.from_numpy(M).cuda().to(torch.bfloat16)
+            for M in folded_conv_matrices(
+                *[rng.standard_normal((R, 2 * h + 1)) * 0.3
+                  for _ in range(3)], (n, n, n))]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    vm = torch.rand((n, n, n), generator=g, device="cuda").to(torch.bfloat16)
+
+    def fused():
+        return lc.zfused(vm, *mats, h, h, h)
+
+    def pair():
+        return lc.conv_lowrank_folded_fused(vm, *mats, h, h, h)
+
+    err = kernel_error(fused(), pair())
+    torch.cuda.empty_cache()
+    out = {"rank": R, "shape": [n, n, n], "rad": [h, h, h], "error": err,
+           "a_bytes": R * n ** 3 * 2,
+           "pair_slabs": len(lc._z_slabs(n, R, n, n, 2)),
+           "ms": cuda_ms(fused, 5), "pair_ms": cuda_ms(pair, 5)}
+    del mats, vm
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_dog(vol: np.ndarray) -> dict:
@@ -804,6 +862,233 @@ def phase_dog(vol: np.ndarray) -> dict:
             "library_ms": None}
 
 
+def write_store(path: str, vol: torch.Tensor):
+    """A raw float32 store of a (Z, Y, X) card tensor, written in z-slabs."""
+    from spim_registration_tpu_torch.native_blocks import RawVolumeStore
+
+    st = RawVolumeStore(path, tuple(vol.shape), create=True)
+    for z0 in range(0, vol.shape[0], OOC_BLOCK_Z):
+        st.write_block((z0, 0, 0), vol[z0:z0 + OOC_BLOCK_Z].cpu().numpy())
+    return st
+
+
+def phantom_views(shape, psfs, seed: int, n_beads: int) -> torch.Tensor:
+    """A seeded bead phantom (sigma 1, 16 px from the faces) blurred on the
+    card by each PSF (circular FFT conv), plus 0.01: (V, Z, Y, X)."""
+    from spim_registration_tpu_torch.ops.fftconv import prepare_kernel_fft
+    from spim_registration_tpu_torch.utils.simulation import render_beads
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(16, np.array(shape) - 16, size=(n_beads, 3))
+    tf = torch.fft.rfftn(torch.from_numpy(render_beads(pts, shape,
+                                                       sigma=1.0)).cuda())
+    views = torch.empty((len(psfs),) + tuple(shape), device="cuda")
+    for v, p in enumerate(psfs):
+        kf = prepare_kernel_fft(torch.from_numpy(p).cuda(), shape)
+        views[v] = torch.clamp(torch.fft.irfftn(tf * kf, s=shape), min=0.0)
+    del tf
+    return views.add_(0.01)
+
+
+def ooc_block_kernels(name, runner, psi_store, img_stores) -> dict:
+    """`zpass` and `sl_rows` against their plain versions at the block
+    shapes the out-of-core run gave them: for an edge block and an
+    interior block of the first view whose two kernels run lowrank, the
+    stage-1 band (R, bz + 2 r2z, bz + 2 r2z + 2 rz) over psi's halo rows
+    read from the store and the stage-2 band (R, bz, bz + 2 rz) over
+    q - 1 (q from the plain stage 1 and the image's halo rows), with the
+    runner's own entries (dither phase 0): the z pass with its windows
+    centred at rz against `zpass_reference`, the rows pass with its y/x
+    windows on the plain `a` against `fused_sl_reference`, and the block
+    conv's entry point (`conv_lowrank_folded_fused`, z_off = rz) against
+    the plain chain of the two. Returns each kernel's largest error."""
+    from spim_registration_tpu_torch.deconv.blocked import _mirror_q_edges
+    from spim_registration_tpu_torch.native_blocks import read_mirror_z
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+    Z = runner.shape[0]
+    bz, hz, r2z = runner.bz, runner.hz, runner.r2z
+    lr = [v for v in range(len(runner.e1))
+          if "mat" in runner.e1[v] and "mat" in runner.e2[v]]
+    if not lr:
+        raise AssertionError(f"ooc {name}: no view runs both convs lowrank")
+    v = lr[0]
+
+    def load(store, lo, hi):
+        return torch.from_numpy(read_mirror_z(store, lo, hi)).cuda()
+
+    cases, bands = {}, {}
+    for where, z0 in (("edge", 0), ("interior", bz * (Z // bz // 2))):
+        x = load(psi_store, z0 - hz, z0 + bz + hz)
+        img_ext = load(img_stores[v], z0 - r2z, z0 + bz + r2z)
+        for stage, entry, trim in ((1, runner.e1[v], runner.t1[v]),
+                                   (2, runner.e2[v], runner.t2[v])):
+            Tz, My, Mx = (M[0] for M in entry["mat"])
+            rz, ry, rx = entry["rad"]
+            xp = x[trim:x.shape[0] - trim] if trim else x
+            vm = xp.to(Tz.dtype).contiguous()
+            R, N, P = Tz.shape
+            a_ref = lc.zpass_reference(Tz, vm)
+            want = lc.fused_sl_reference(a_ref, My, Mx)
+            key = f"{where}_stage{stage}"
+            bands[key] = {"z0": z0, "band": [R, N, P],
+                          "plane": list(vm.shape[1:]), "rad": [rz, ry, rx]}
+            cases[key + "_zpass"] = kernel_error(
+                lc.zpass(Tz, vm, lc.band_blocks(N, P, rz, off=rz)), a_ref)
+            cases[key + "_sl_rows"] = kernel_error(
+                lc.sl_rows(a_ref, My, Mx, ry, rx), want)
+            cases[key + "_conv"] = kernel_error(lc.conv_lowrank_folded_fused(
+                xp, Tz, My, Mx, rz, ry, rx, z_off=rz), want)
+            del a_ref
+            if stage == 1:
+                q = torch.clamp(img_ext / torch.clamp(want, min=1e-12),
+                                0.0, 1e4)
+                x = _mirror_q_edges(q, z0 - r2z, Z) - 1.0
+            del want
+        torch.cuda.empty_cache()
+    emit({"phase": "ooc_block_kernels", "case": name, "view": v,
+          "bands": bands, "cases": cases})
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"ooc {name}: the block kernels disagree with "
+                             f"their plain versions: {bad}")
+    return {k: max(c["max_abs_err"] for n, c in cases.items()
+                   if n.endswith("_" + k)) for k in ("zpass", "sl_rows")}
+
+
+def ooc_case(name, images, weights, psfs, factors, n_iter,
+             workdir) -> tuple:
+    """One out-of-core case: the in-memory lowrank run of the inputs
+    (the reference; its staging and its run timed apart, the run's wall
+    including the copy of psi to the host), then the inputs into raw
+    stores under `workdir` and the blocked lowrank run at OOC_BLOCK_Z
+    with its launch counts (from 0 just before it), wall,
+    voxel-updates/s and nrmse against the in-memory run; then the block
+    kernels against their plain versions (`ooc_block_kernels`) and a
+    profile of one more iteration (resumed from the psi store): device
+    busy time and idle share. Returns (launch counts, the block
+    kernels' largest errors)."""
+    from spim_registration_tpu_torch.deconv import (
+        DeconvolutionRunner,
+        DeconvolutionViews,
+    )
+    from spim_registration_tpu_torch.deconv.blocked import (
+        BlockedDeconvolutionInputs,
+        BlockedDeconvolutionRunner,
+    )
+    from spim_registration_tpu_torch.native_blocks import RawVolumeStore
+
+    V = images.shape[0]
+    shape = tuple(images.shape[1:])
+    params = rl_params("lowrank", n_iter)
+    prep = DeconvolutionViews(images=images, weights=weights, psfs=psfs,
+                              osem_factor=float(V), psf_factors=factors)
+    mem, mem_stage_s = sync_wall(lambda: DeconvolutionRunner(prep, params))
+    ref, mem_s = sync_wall(lambda: mem.run().cpu().numpy())
+    del prep, mem
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    img_st = [write_store(os.path.join(workdir, f"img{v}.raw"), images[v])
+              for v in range(V)]
+    w_st = [write_store(os.path.join(workdir, f"w{v}.raw"), weights[v])
+            for v in range(V)]
+    stores_s = time.perf_counter() - t0
+    psi = RawVolumeStore(os.path.join(workdir, "psi.raw"), shape,
+                         create=True)
+    inputs = BlockedDeconvolutionInputs(img_st, w_st, psfs, float(V),
+                                        psf_factors=factors)
+    runner, stage_s = sync_wall(lambda: BlockedDeconvolutionRunner(
+        inputs, psi, params, block_z=OOC_BLOCK_Z))
+    reset_launches()
+    _, wall = sync_wall(runner.run)
+    launches = read_launches()
+    got = psi.read_block((0, 0, 0), shape)
+    err = nrmse(ref, got)
+    n_blocks = shape[0] // OOC_BLOCK_Z
+    n_mat = sum("mat" in e for e in runner.e1 + runner.e2)
+    expected = n_iter * n_blocks * n_mat
+    block_errs = ooc_block_kernels(name, runner, psi, img_st)
+    prof = device_profile(lambda: runner.run(num_iterations=1,
+                                             init_psi=False))
+    out = {"case": name, "shape": list(shape), "views": V, "iters": n_iter,
+           "block_z": OOC_BLOCK_Z, "blocks": n_blocks,
+           "mat_kernels": n_mat, "fft_kernels": 2 * V - n_mat,
+           "in_memory_staging_s": mem_stage_s, "in_memory_s": mem_s,
+           "stores_s": stores_s, "staging_s": stage_s,
+           "wall_s": wall,
+           "voxel_updates_per_s": float(np.prod(shape)) * V * n_iter / wall,
+           "in_memory_voxel_updates_per_s":
+               float(np.prod(shape)) * V * n_iter / mem_s,
+           "nrmse_vs_in_memory": err, "tol": OOC_TOL,
+           "launches": launches, "expected_launches": expected,
+           "block_kernels_max_abs_err": block_errs,
+           "profile_one_iteration": {k: prof[k] for k in (
+               "wall_s", "device_busy_s", "idle_share", "top")}}
+    emit({"phase": "ooc", **out})
+    if not (got.shape == shape and np.all(np.isfinite(got))):
+        raise AssertionError(f"ooc {name}: bad output")
+    if not err <= OOC_TOL:
+        raise AssertionError(f"ooc {name}: nrmse {err} > {OOC_TOL}")
+    if launches["zpass"] != expected or launches["sl_rows"] != expected:
+        raise AssertionError(f"ooc {name}: launches {launches}, expected "
+                             f"{expected} of zpass and sl_rows")
+    return launches, block_errs
+
+
+def phase_ooc(psfs, factors) -> dict:
+    """The out-of-core deconvolution (`BlockedDeconvolutionRunner` over
+    `RawVolumeStore`s in a temporary directory of the checkout, lowrank
+    bf16 on the kernels) through `ooc_case`: at the RL main path's
+    configuration (4 views x 256^3, 20 iterations, block_z 64: 4 blocks)
+    and on a 512^3 box x 4 views (8 blocks; seeded bead phantom blurred
+    on the card by the fixture PSFs; OOC_BIG_ITERS iterations, cut from
+    N_ITER for the time limit only). Where the disk cannot take the big
+    case's stores, its z is cut (a multiple of the block height) and the
+    reason printed. Returns the launch counts of the 256^3 run and each
+    block kernel's largest error against its plain version over both
+    cases (`ooc_block_kernels`)."""
+    import shutil
+    import tempfile
+
+    from spim_registration_tpu_torch.native_blocks import native_path
+
+    emit({"phase": "ooc_io", "block_io": native_path()})
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_ooc_smoke_") as d:
+        prep = make_rl_prep(SHAPE, psfs, factors)
+        launches, errs = ooc_case("main", prep.images, prep.weights, psfs,
+                                  factors, N_ITER, d)
+        del prep
+        torch.cuda.empty_cache()
+    big = [OOC_BIG] * 3
+    vol_bytes = 4 * OOC_BIG ** 3
+    # image + weight per view, psi and its scratch, and slack
+    need = (2 * N_VIEWS + 2) * vol_bytes * 1.2
+    free = shutil.disk_usage(ROOT).free
+    reduced = []
+    if free < need:
+        z = int(OOC_BIG * free / need) // OOC_BLOCK_Z * OOC_BLOCK_Z
+        if z < OOC_BLOCK_Z:
+            raise AssertionError(f"ooc big: {free} bytes free on disk, "
+                                 f"{need:.0f} needed")
+        reduced.append(f"z {OOC_BIG} -> {z}: {free} bytes free on disk, "
+                       f"{need:.0f} needed")
+        big[0] = z
+    reduced.append(f"iterations {N_ITER} -> {OOC_BIG_ITERS} (time limit)")
+    emit({"phase": "ooc_big_setup", "shape": big, "reduced": reduced,
+          "disk_free_bytes": free})
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_ooc_smoke_") as d:
+        images = phantom_views(tuple(big), psfs, seed=7,
+                               n_beads=150 * 8 * big[0] // OOC_BIG)
+        w = torch.from_numpy(ramp_weights(tuple(big), N_VIEWS)).cuda()
+        weights = w.expand((N_VIEWS,) + tuple(big)).contiguous()
+        del w
+        _, big_errs = ooc_case("big", images, weights, psfs, factors,
+                               OOC_BIG_ITERS, d)
+        del images, weights
+        torch.cuda.empty_cache()
+    return launches, {k: max(errs[k], big_errs[k]) for k in errs}
+
+
 def phase_cli() -> None:
     """The headless CLI on one dataset XML, each verb through `cli.main`
     in-process in a temporary directory of the checkout: simulate 4 views
@@ -811,22 +1096,39 @@ def phase_cli() -> None:
     -> fuse -> deconvolve (lowrank, 10 iterations; the raw extracted PSFs
     decompose to 1% at ranks ~20, hence psf_rank_tol=0.01) -> the same
     deconvolve on the exact FFT backend, which the lowrank output is held
-    against (nrmse <= CLI_LOWRANK_TOL) -> info."""
+    against (nrmse <= CLI_LOWRANK_TOL) -> info; then the out-of-core
+    verbs: `fuse --out-of-core` held against `fuse` (CLI_OOC_FUSE_TOL),
+    and on a 256^3 box from `define-bbox` (z a multiple of the block
+    height) the lowrank `deconvolve --out-of-core --block-z 64` held
+    against the in-memory `deconvolve` of the box (OOC_TOL); `tune` on
+    view (0, 0); `icp-refine` on a copy of the registered XML. The two
+    new verbs' library calls are also held card against CPU on their
+    inputs: `sweep_detection`'s peak counts exact, each view's
+    `icp_refine` matrix within CLI_ICP_TOL."""
     import contextlib
     import io
+    import shutil
     import tempfile
 
     from spim_registration_tpu_torch import cli
     from spim_registration_tpu_torch.core.xml_io import load_dataset
+    from spim_registration_tpu_torch.detect.tune import sweep_detection
     from spim_registration_tpu_torch.fuse.bounding_box import (
         maximal_bounding_box,
     )
+    from spim_registration_tpu_torch.match.icp import icp_refine
 
     walls, launches, logs = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_cli_smoke_") as d:
         xml = os.path.join(d, "dataset.xml")
-        fused_p, psi_p, fft_p = (os.path.join(d, f) for f in (
-            "fused.npy", "psi.npy", "psi_fft.npy"))
+        fused_p, psi_p, fft_p, fused_ooc_p, box_p, box_ooc_p = (
+            os.path.join(d, f) for f in (
+                "fused.npy", "psi.npy", "psi_fft.npy", "fused_ooc.npy",
+                "psi_box.npy", "psi_box_ooc.npy"))
+        icp_xml = os.path.join(d, "icp.xml")
+        lowrank = ["--set", "deconvolution.conv_backend=lowrank",
+                   "--set", "deconvolution.num_iterations=10",
+                   "--set", "deconvolution.psf_rank_tol=0.01"]
         verbs = {
             "simulate": ["simulate", "--out", d, "--views", str(N_VIEWS),
                          "--shape", *map(str, SHAPE), "--beads", "300",
@@ -834,16 +1136,25 @@ def phase_cli() -> None:
             "detect": ["detect", xml],
             "register": ["register", xml],
             "fuse": ["fuse", xml, "--out", fused_p],
-            "deconvolve": ["deconvolve", xml, "--out", psi_p,
-                           "--set", "deconvolution.conv_backend=lowrank",
-                           "--set", "deconvolution.num_iterations=10",
-                           "--set", "deconvolution.psf_rank_tol=0.01"],
+            "deconvolve": ["deconvolve", xml, "--out", psi_p, *lowrank],
             "deconvolve_fft": ["deconvolve", xml, "--out", fft_p,
                                "--set", "deconvolution.conv_backend=fft",
                                "--set", "deconvolution.num_iterations=10"],
             "info": ["info", xml],
+            "fuse_ooc": ["fuse", xml, "--out", fused_ooc_p, "--out-of-core"],
+            "define_bbox": ["define-bbox", xml, "ooc", "--min", "0", "0",
+                            "0", "--max", *map(str, SHAPE)],
+            "deconvolve_box": ["deconvolve", xml, "--bbox", "ooc", "--out",
+                               box_p, *lowrank],
+            "deconvolve_ooc": ["deconvolve", xml, "--bbox", "ooc", "--out",
+                               box_ooc_p, *lowrank, "--out-of-core",
+                               "--block-z", str(OOC_BLOCK_Z)],
+            "tune": ["tune", xml, "--view", "0", "0"],
+            "icp_refine": ["icp-refine", icp_xml],
         }
         for name, argv in verbs.items():
+            if name == "icp_refine":
+                shutil.copy(xml, icp_xml)
             buf = io.StringIO()
             reset_launches()
             torch.cuda.synchronize()
@@ -868,7 +1179,29 @@ def phase_cli() -> None:
                 (p @ A[:, :3].T + A[:, 3]) - (p @ T[:, :3].T + T[:, 3]),
                 axis=1))))
         names = [[t.name for t in v.transforms] for v in views]
-        fused, psi, psi_fft = (np.load(f) for f in (fused_p, psi_p, fft_p))
+        icp_names = [[t.name for t in v.transforms]
+                     for v in load_dataset(icp_xml).views_of_timepoint(0)]
+        fused, psi, psi_fft, fused_ooc, box, box_ooc = (
+            np.load(f) for f in (fused_p, psi_p, fft_p, fused_ooc_p, box_p,
+                                 box_ooc_p))
+        vol0 = cli._dataset_with_loader(xml).get_image((0, 0))
+        # the two new verbs' library calls on the card against the same
+        # calls on the CPU, on the verbs' own inputs
+        sweeps = {dev: sweep_detection(vol0, device=dev)
+                  for dev in ("cuda", "cpu")}
+        del vol0
+        pts_world = [v.interest_points["beads"].points
+                     @ v.model()[:, :3].T + v.model()[:, 3] for v in views]
+        icp_cmp = []
+        for i in range(1, len(views)):
+            got = {dev: icp_refine(pts_world[i], pts_world[0], device=dev)
+                   for dev in ("cuda", "cpu")}
+            icp_cmp.append({
+                "max_abs_diff": float(np.abs(got["cuda"][0]
+                                             - got["cpu"][0]).max()),
+                "matches": [len(got[d][1]) for d in got],
+                "residual_px": [float(got[d][2]) for d in got],
+                "iters": [int(got[d][3]) for d in got]})
         bbox = maximal_bounding_box([tuple(v.size) for v in views],
                                     [v.model() for v in views])
     A0 = views[0].model()
@@ -878,7 +1211,23 @@ def phase_cli() -> None:
     pk_f = float(np.mean(fused[tuple(idx.T)]))
     pk_d = float(np.mean(psi[tuple(idx.T)]))
     gate = nrmse(psi_fft, psi)
+    ooc = {"fuse_nrmse": nrmse(fused, fused_ooc),
+           "fuse_tol": CLI_OOC_FUSE_TOL,
+           "deconvolve_box_shape": list(box.shape),
+           "deconvolve_nrmse": nrmse(box, box_ooc), "deconvolve_tol": OOC_TOL,
+           "icp_transforms": icp_names,
+           # per view against view 0: matches and residual (px), as printed
+           "icp": [[int(ln.split(" matches")[0].split()[-1]),
+                    float(ln.split("residual ")[1].split()[0])]
+                   for ln in logs["icp_refine"] if "icp " in ln],
+           "icp_card_vs_cpu": icp_cmp, "icp_tol": CLI_ICP_TOL,
+           "tune_suggested": [ln for ln in logs["tune"]
+                              if ln.startswith("suggested")],
+           "tune_table_card": [[s, t, n] for (s, t), n
+                               in sorted(sweeps["cuda"].items())],
+           "tune_table_card_equals_cpu": sweeps["cuda"] == sweeps["cpu"]}
     emit({"phase": "cli", "views": N_VIEWS, "shape": list(SHAPE),
+          "out_of_core_and_extras": ooc,
           "walls_s": walls, "launches": launches,
           "points_per_view": n_pts, "transforms": names,
           "transform_error_px": errs, "transform_error_tol": 0.5,
@@ -908,6 +1257,35 @@ def phase_cli() -> None:
     if not gate <= CLI_LOWRANK_TOL:
         raise AssertionError(f"cli lowrank vs fft nrmse {gate} > "
                              f"{CLI_LOWRANK_TOL}")
+    if not (fused_ooc.shape == fused.shape
+            and ooc["fuse_nrmse"] <= CLI_OOC_FUSE_TOL):
+        raise AssertionError(f"cli fuse --out-of-core: {ooc}")
+    if not (box.shape == box_ooc.shape == SHAPE
+            and np.all(np.isfinite(box_ooc))
+            and ooc["deconvolve_nrmse"] <= OOC_TOL):
+        raise AssertionError(f"cli deconvolve --out-of-core: {ooc}")
+    if launches["deconvolve_ooc"]["zpass"] == 0 \
+            or launches["deconvolve_ooc"]["sl_rows"] == 0:
+        raise AssertionError(f"deconvolve --out-of-core did not run the "
+                             f"kernels: {launches['deconvolve_ooc']}")
+    if launches["tune"]["segtopk"] == 0 or not ooc["tune_suggested"] \
+            or sweeps["cuda"] != sweeps["cpu"]:
+        raise AssertionError(f"tune: {launches['tune']}, {logs['tune']}, "
+                             f"card {sweeps['cuda']} vs cpu "
+                             f"{sweeps['cpu']}")
+    if not all(c["max_abs_diff"] <= CLI_ICP_TOL for c in icp_cmp):
+        raise AssertionError(f"icp_refine on the card vs the CPU: {icp_cmp}")
+    # every view but the first (the reference) gains an "icp" transform,
+    # newest first; as in the reference, it holds the ICP correction
+    # composed with the whole earlier chain (ROADMAP.md section 3), so
+    # the residuals are the measure here: the mean distance of
+    # nearest-neighbour pairs within 5 px, detection noise of both
+    # points included
+    if icp_names[0] != ["registration"] \
+            or any(n != ["icp", "registration"] for n in icp_names[1:]) \
+            or len(ooc["icp"]) != N_VIEWS - 1 \
+            or not all(m >= 100 and r < 1.0 for m, r in ooc["icp"]):
+        raise AssertionError(f"icp-refine: {icp_names}, {ooc['icp']}")
 
 
 def phase_rl(psfs, factors) -> tuple:
@@ -1438,27 +1816,38 @@ def main() -> int:
     from spim_registration_tpu_torch.utils.device import set_exact_float32
 
     set_exact_float32()
-    smi = phase_card()
-    phase_build()
+    walls = {}
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    smi = timed("card", phase_card)
+    timed("build", phase_build)
     psfs, factors = load_fixtures()
-    counts, runner = phase_rl(psfs, factors)
-    phase_profile(runner)
-    kernels = phase_kernels(runner)
+    counts, runner = timed("rl", phase_rl, psfs, factors)
+    timed("profile", phase_profile, runner)
+    kernels = timed("kernels", phase_kernels, runner)
     del runner
-    torch.cuda.empty_cache()
     vol = detection_volume()
-    counts["segtopk"] = phase_detect(vol)
-    torch.cuda.empty_cache()
-    kernels["segtopk"] = phase_segtopk(vol)
-    kernels["dog"] = phase_dog(vol)
+    counts["segtopk"] = timed("detect", phase_detect, vol)
+    kernels["segtopk"] = timed("segtopk", phase_segtopk, vol)
+    kernels["dog"] = timed("dog", phase_dog, vol)
     del vol
-    torch.cuda.empty_cache()
-    phase_match()
-    torch.cuda.empty_cache()
-    phase_pipeline()
-    phase_small_vs_cpu()
-    torch.cuda.empty_cache()
-    phase_cli()
+    timed("match", phase_match)
+    timed("pipeline", phase_pipeline)
+    timed("small_vs_cpu", phase_small_vs_cpu)
+    ooc, ooc_errs = timed("ooc", phase_ooc, psfs, factors)
+    for name in ("zpass", "sl_rows"):
+        kernels[name]["launches_ooc"] = ooc[name]
+        kernels[name]["max_abs_err_ooc_blocks"] = ooc_errs[name]
+    timed("cli", phase_cli)
+    emit({"phase": "walls", "seconds": walls,
+          "total_s": time.perf_counter() - t_start})
     for name in ("zpass", "sl_rows", "segtopk"):
         kernels[name]["launches"] = counts[name]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",

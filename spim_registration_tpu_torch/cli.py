@@ -12,12 +12,17 @@ XML is the checkpoint).
     python -m spim_registration_tpu_torch.cli deconvolve ds/dataset.xml --out psi.npy
     python -m spim_registration_tpu_torch.cli info       ds/dataset.xml
 
-The compute verbs run on the CUDA card; `--device cpu` runs them on the
-host (the counterpart of the reference's JAX_PLATFORMS). Verbs and options
-the port does not have yet (`define`, `resave`, `tune`, `icp-refine`,
-`cluster-*`, `--mesh`, `--multihost`, `--profile`, `--out-of-core`,
-`--append-hdf5`, zarr/n5 export) exit with code 2 and say so; nothing
-falls back to another path.
+    python -m spim_registration_tpu_torch.cli tune       ds/dataset.xml
+    python -m spim_registration_tpu_torch.cli icp-refine ds/dataset.xml
+
+`fuse` and `deconvolve` take `--out-of-core` (streaming fusion, blocked
+deconvolution over disk stores in `--ooc-workdir`; `deconvolve` also
+`--block-z`). The compute verbs run on the CUDA card; `--device cpu` runs
+them on the host (the counterpart of the reference's JAX_PLATFORMS).
+Verbs and options the port does not have yet (`define`, `resave`,
+`cluster-*`, `--mesh`, `--multihost`, `--profile`, `--append-hdf5`,
+zarr/n5 export) exit with code 2 and say so; nothing falls back to
+another path.
 """
 
 from __future__ import annotations
@@ -31,8 +36,7 @@ from typing import Dict
 import numpy as np
 
 # verbs of the reference CLI that the port does not have yet
-NOT_PORTED = ("define", "resave", "tune", "icp-refine", "cluster-job",
-              "cluster-merge")
+NOT_PORTED = ("define", "resave", "cluster-job", "cluster-merge")
 
 
 def _dataset_with_loader(xml_path: str):
@@ -240,8 +244,46 @@ def cmd_fuse(args):
         vols = [ds.get_image(v.view_id) for v in views]
         models = [v.model() for v in views]
         bbox = _resolve_bbox(ds, args, vols, models)
-        out = fuse_views(vols, models, bbox, cfg.fusion, device=args.device)
-        _export_volume(args, ds, out, tp, "fused")
+        if args.out_of_core:
+            out = _fuse_out_of_core(args, cfg, tp, vols, models, bbox)
+        else:
+            out = fuse_views(vols, models, bbox, cfg.fusion,
+                             device=args.device)
+        if out is not None:
+            _export_volume(args, ds, out, tp, "fused")
+
+
+def _ooc_workdir(args, tp) -> str:
+    return args.ooc_workdir or (str(args.out) + f".ooc_tp{tp}")
+
+
+def _fuse_out_of_core(args, cfg, tp, vols, models, bbox):
+    """Streaming fusion: the views staged into disk stores, fused block by
+    block into a disk-resident output (`fuse/streaming.py`). Returns the
+    fused array for export, or None when `--out` ends in .raw (the store
+    is the output)."""
+    from spim_registration_tpu_torch.fuse.streaming import (
+        fuse_views_streaming,
+    )
+    from spim_registration_tpu_torch.native_blocks import RawVolumeStore
+
+    workdir = _ooc_workdir(args, tp)
+    os.makedirs(workdir, exist_ok=True)
+    stores = []
+    for i, v in enumerate(vols):
+        st = RawVolumeStore(os.path.join(workdir, f"view{i}.raw"),
+                            np.shape(v), create=True)
+        st.write_block((0, 0, 0), np.asarray(v, np.float32))
+        stores.append(st)
+    raw_out = str(args.out).endswith(".raw")
+    out_path = (str(args.out) if raw_out
+                else os.path.join(workdir, "fused.raw"))
+    out_store = RawVolumeStore(out_path, bbox.shape, create=True)
+    fuse_views_streaming(stores, models, bbox, out_store, cfg.fusion,
+                         device=args.device)
+    print(f"tp {tp}: streaming fusion done (output at {out_path})",
+          file=sys.stderr)
+    return None if raw_out else out_store.read_block((0, 0, 0), bbox.shape)
 
 
 def cmd_deconvolve(args):
@@ -268,10 +310,44 @@ def cmd_deconvolve(args):
                                   device=args.device)
             psfs.append(psf)
         bbox = _resolve_bbox(ds, args, vols, models)
-        prep = prepare_views_for_deconvolution(vols, models, psfs, bbox,
-                                               device=args.device)
-        out = deconvolve(prep, cfg.deconvolution, device=args.device)
-        _export_volume(args, ds, out, tp, "deconvolved")
+        if args.out_of_core:
+            out = _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs,
+                                          bbox)
+        else:
+            prep = prepare_views_for_deconvolution(vols, models, psfs, bbox,
+                                                   device=args.device)
+            out = deconvolve(prep, cfg.deconvolution, device=args.device)
+        if out is not None:
+            _export_volume(args, ds, out, tp, "deconvolved")
+
+
+def _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs, bbox):
+    """Out-of-core deconvolution: streamed prep (one source view resident
+    at a time) -> the disk-resident `BlockedDeconvolutionRunner`. Returns
+    the psi array for export, or None when `--out` ends in .raw (the psi
+    store is the output; volumes beyond memory are never materialized)."""
+    from spim_registration_tpu_torch.deconv.blocked import (
+        BlockedDeconvolutionRunner,
+    )
+    from spim_registration_tpu_torch.deconv.prep_streamed import (
+        prepare_views_streamed,
+    )
+    from spim_registration_tpu_torch.native_blocks import RawVolumeStore
+
+    workdir = _ooc_workdir(args, tp)
+    inputs = prepare_views_streamed(
+        lambda v: np.asarray(vols[v]), models, psfs, bbox, workdir,
+        device=args.device)
+    raw_out = str(args.out).endswith(".raw")
+    psi_path = (str(args.out) if raw_out
+                else os.path.join(workdir, "psi.raw"))
+    psi = RawVolumeStore(psi_path, bbox.shape, create=True)
+    BlockedDeconvolutionRunner(inputs, psi, cfg.deconvolution,
+                               block_z=args.block_z,
+                               device=args.device).run()
+    print(f"tp {tp}: out-of-core deconvolution done (psi at {psi_path})",
+          file=sys.stderr)
+    return None if raw_out else psi.read_block((0, 0, 0), bbox.shape)
 
 
 def cmd_define_bbox(args):
@@ -310,6 +386,73 @@ def cmd_define_bbox(args):
     save_dataset(ds, args.xml)
     print(f"bounding box {args.name!r}: min={bb.min} max={bb.max} "
           f"shape={bb.shape} -> {args.xml}")
+
+
+def cmd_tune(args):
+    """Headless InteractiveDoG analog: sweep sigma x threshold on one
+    view, print the peak-count table and a suggested threshold."""
+    from spim_registration_tpu_torch.detect.tune import (
+        suggest_threshold,
+        sweep_detection,
+    )
+
+    ds = _dataset_with_loader(args.xml)
+    vid = tuple(args.view) if args.view else sorted(ds.views)[0]
+    vol = ds.get_image(tuple(vid))
+    table = sweep_detection(vol, device=args.device)
+    sigmas = sorted({s for s, _ in table})
+    thresholds = sorted({t for _, t in table})
+    print("peaks per (sigma x threshold):")
+    print("sigma\\thr " + " ".join(f"{t:>8g}" for t in thresholds))
+    for s in sigmas:
+        print(f"{s:>8g} " + " ".join(f"{table[(s, t)]:>8d}"
+                                     for t in thresholds))
+    sug = suggest_threshold(vol, sigma=args.sigma,
+                            expected_points=args.expected_points,
+                            device=args.device)
+    print(f"suggested threshold (sigma={args.sigma}"
+          + (f", ~{args.expected_points} points" if args.expected_points
+             else "") + f"): {sug:.5f}")
+    return 0
+
+
+def cmd_icp_refine(args):
+    """ICP refinement of already-registered views against view 0 of each
+    timepoint (the reference's IterativeClosestPointPairwise after a
+    descriptor registration). As in the reference, the stored "icp"
+    transform is the ICP correction composed with the view's whole
+    earlier model."""
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.match.icp import (
+        ICPParameters,
+        icp_refine,
+    )
+
+    ds = _dataset_with_loader(args.xml)
+    cfg = _load_config(args)
+    params = ICPParameters(max_distance=args.max_distance)
+    for tp in ds.timepoints():
+        views = ds.views_of_timepoint(tp)
+        pts_world = []
+        for v in views:
+            ips = v.interest_points.get(cfg.label)
+            if ips is None:
+                print(f"view {v.view_id}: no interest points; run detect "
+                      "first", file=sys.stderr)
+                return 1
+            A = v.model()
+            pts_world.append(np.asarray(ips.points) @ A[:, :3].T + A[:, 3])
+        for i, v in enumerate(views[1:], 1):
+            M, matches, err, iters = icp_refine(
+                pts_world[i], pts_world[0], params=params,
+                device=args.device)
+            M4 = np.vstack([M, [0, 0, 0, 1]])
+            A4 = np.vstack([v.model(), [0, 0, 0, 1]])
+            v.set_transform("icp", (M4 @ A4)[:3])
+            print(f"tp {tp} view {v.view_id}: icp {len(matches)} matches, "
+                  f"residual {err:.4f} px in {iters} iters")
+    save_dataset(ds, args.xml)
+    return 0
 
 
 def cmd_info(args):
@@ -380,6 +523,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--margin", type=int, default=10)
     sp.set_defaults(fn=cmd_define_bbox)
 
+    sp = sub.add_parser("tune", help="sweep DoG sigma/threshold on one "
+                        "view (InteractiveDoG analog)")
+    sp.add_argument("xml")
+    sp.add_argument("--view", type=int, nargs=2, metavar=("TP", "SETUP"))
+    sp.add_argument("--sigma", type=float, default=1.8)
+    sp.add_argument("--expected-points", type=int, default=None)
+    common(sp)
+    sp.set_defaults(fn=cmd_tune)
+
+    sp = sub.add_parser("icp-refine", help="ICP-refine registered views "
+                        "against view 0 (per timepoint)")
+    sp.add_argument("xml")
+    sp.add_argument("--max-distance", type=float, default=5.0)
+    common(sp)
+    sp.set_defaults(fn=cmd_icp_refine)
+
     for name, fn, default in (("fuse", cmd_fuse, "fused.tif"),
                               ("deconvolve", cmd_deconvolve,
                                "deconvolved.tif")):
@@ -390,6 +549,17 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--bbox", metavar="NAME",
                         help="use this named bounding box from the XML "
                              "instead of the automatic maximal box")
+        sp.add_argument("--out-of-core", action="store_true",
+                        help="stream through disk-resident blocks "
+                             "(larger-than-memory volumes; `--out x.raw` "
+                             "keeps the result on disk only)")
+        sp.add_argument("--ooc-workdir", metavar="DIR",
+                        help="work directory for the out-of-core stores "
+                             "(default: <out>.ooc_tp<N>)")
+        if name == "deconvolve":
+            sp.add_argument("--block-z", type=int,
+                            help="out-of-core z-block height (default: "
+                                 "auto)")
         common(sp)
         sp.set_defaults(fn=fn)
 

@@ -138,6 +138,49 @@ def _fuse_chunk(views, z0: int, chunk_shape, params: FusionParameters,
                        torch.zeros((), device=device))
 
 
+def _accumulate_view_chunk(acc_v, acc_w, vol, weight_vol, world_to_view,
+                           chunk_offset, view_size, params: FusionParameters,
+                           chunk_shape, blend_size=None, blend_offset=None,
+                           content_affine=None):
+    """Add one view's contribution to one output chunk; returns the new
+    (acc_v, acc_w).
+
+    `blend_size`/`blend_offset`: when `vol` is a sub-region of the full
+    view (streaming mode), the blending ramp is still evaluated in
+    full-view coordinates: full = sampled + blend_offset, ramp over
+    blend_size.
+
+    `content_affine`: when given, `weight_vol` is a low-res content-weight
+    volume sampled at content_affine @ (chunk voxel) — the streaming
+    content path (coordinates clamped: the low-res pyramid may be a voxel
+    short at the far faces, where content is smooth)."""
+    dev = vol.device
+    grid = output_grid_coords(chunk_shape, device=dev) \
+        + torch.as_tensor(chunk_offset, dtype=torch.float32, device=dev)
+    vc = apply_affine(world_to_view.to(torch.float32), grid)
+    if params.interpolation == "nearest":
+        vals, inside = trilinear_sample(vol, torch.round(vc))
+    else:
+        vals, inside = trilinear_sample(vol, vc)
+    w = inside.to(torch.float32)
+    if params.use_blending:
+        bc = vc if blend_offset is None else vc + blend_offset
+        w = w * blending_weight(
+            bc, view_size if blend_size is None else blend_size,
+            params.blending)
+    if params.use_content_based and weight_vol is not None:
+        if content_affine is not None:
+            cc = apply_affine(content_affine.to(torch.float32), grid)
+            top = torch.tensor(weight_vol.shape, dtype=torch.float32,
+                               device=dev) - 1.0
+            cc = torch.minimum(torch.clamp(cc, min=0.0), top)
+            cw, _ = trilinear_sample(weight_vol, cc)
+        else:
+            cw, _ = trilinear_sample(weight_vol, vc)
+        w = w * cw
+    return acc_v + w * vals, acc_w + w
+
+
 def fuse_views(
     volumes: Sequence[np.ndarray],
     models: Sequence[np.ndarray],

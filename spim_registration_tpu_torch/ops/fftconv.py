@@ -36,10 +36,15 @@ def _fft_size(n: int) -> int:
         m += 1
 
 
+def fft_shape_for(lengths) -> tuple:
+    """Smooth FFT sizes for already-padded lengths."""
+    return tuple(_fft_size(int(n)) for n in lengths)
+
+
 def pad_shape_for(img_shape, kernel_shape) -> tuple:
     """Expanded FFT shape: image + kernel support, rounded to smooth sizes."""
-    return tuple(_fft_size(i + 2 * (k // 2))
-                 for i, k in zip(img_shape, kernel_shape))
+    return fft_shape_for(i + 2 * (k // 2)
+                         for i, k in zip(img_shape, kernel_shape))
 
 
 def prepare_kernel_fft(kernel: torch.Tensor, fft_shape) -> torch.Tensor:

@@ -424,9 +424,9 @@ sl_rows.launches = 0
 
 
 def _z_slabs(Z: int, R: int, Y: int, X: int, itemsize: int) -> list:
-    """The (start, stop) z-slabs of `conv_lowrank_folded_fused`: one when
-    the z pass's `a` (R, Z, Y, X) stays within `_A_SLAB_BYTES`, else as
-    many rows a slab as fit it."""
+    """The (start, stop) slabs of the Z output rows of
+    `conv_lowrank_folded_fused`: one when the z pass's `a` (R, Z, Y, X)
+    stays within `_A_SLAB_BYTES`, else as many rows a slab as fit it."""
     per_row = R * Y * X * itemsize
     sl = Z if per_row * Z <= _A_SLAB_BYTES else max(1, _A_SLAB_BYTES
                                                      // per_row)
@@ -437,27 +437,32 @@ def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
                               My: torch.Tensor, Mx: torch.Tensor,
                               rad_z: int | None = None,
                               rad_y: int | None = None,
-                              rad_x: int | None = None) -> torch.Tensor:
+                              rad_x: int | None = None,
+                              z_off: int = 0) -> torch.Tensor:
     """Mirror-boundary lowrank convolution through `zpass` + `sl_rows`
     (the twin of `ops.separable.conv_lowrank_folded`).
 
     `rad_z` / `rad_y` / `rad_x`: the kernel's half-supports; each one
     given makes its pass contract only each tile's band window on that
-    axis. Volumes whose `a` would exceed `_A_SLAB_BYTES` run in z-slabs at
-    full rank: the z-pass matrix rows are sliced to the slab and the band
-    centre shifts by the slab's first row."""
-    Z, Y, X = vol.shape
+    axis. Mz is (R, N, P) with row i's band centred at column i + z_off:
+    square (N = P, z_off 0) for a whole volume, or a block's (R, n_out,
+    n_out + 2 rz) band over its halo rows (z_off = rz); the output has
+    N rows. Where `a` would exceed `_A_SLAB_BYTES` the output rows run in
+    slabs at full rank: the z-pass matrix rows are sliced to the slab and
+    the band centre shifts by the slab's first row."""
+    P, Y, X = vol.shape
+    N = Mz.shape[1]
     vm = vol.to(Mz.dtype).contiguous()
 
     def run(mz: torch.Tensor, off: int) -> torch.Tensor:
-        win = (band_blocks(mz.shape[1], Z, rad_z, off)
+        win = (band_blocks(mz.shape[1], P, rad_z, z_off + off)
                if rad_z is not None else None)
         return sl_rows(zpass(mz.contiguous(), vm, win), My, Mx, rad_y, rad_x)
 
-    slabs = _z_slabs(Z, Mz.shape[0], Y, X, Mz.element_size())
+    slabs = _z_slabs(N, Mz.shape[0], Y, X, Mz.element_size())
     if len(slabs) == 1:
         return run(Mz, 0).to(vol.dtype)
-    out = torch.empty((Z, My.shape[1], Mx.shape[1]), dtype=torch.float32,
+    out = torch.empty((N, My.shape[1], Mx.shape[1]), dtype=torch.float32,
                       device=vol.device)
     for s, e in slabs:
         out[s:e] = run(Mz[:, s:e], s)

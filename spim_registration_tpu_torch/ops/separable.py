@@ -220,7 +220,9 @@ def conv_lowrank_folded(vol: torch.Tensor, Mz: torch.Tensor,
     plain chain of torch matmuls.
 
     Mz/My/Mx: (R, n_axis, n_axis) from `folded_conv_matrices`, in bf16 or
-    f32 (the matrix dtype is also the dtype of the two intermediates).
+    f32 (the matrix dtype is also the dtype of the two intermediates). Mz
+    may also be a rectangular (R, N, Z) band (the out-of-core engine's
+    block z pass); the output then has N rows.
     Large volumes (>= `_RANK_CHUNK_MIN_VOXELS`) run the rank axis in
     chunks of `_RANK_CHUNK`, accumulating the chunk sums in f32, so the
     (R, n^3) intermediates stay bounded."""
@@ -229,8 +231,8 @@ def conv_lowrank_folded(vol: torch.Tensor, Mz: torch.Tensor,
     Z, Y, X = vol.shape
     vm = vol.to(mid)
     if R > _RANK_CHUNK and Z * Y * X >= _RANK_CHUNK_MIN_VOXELS:
-        out = torch.zeros((Z, My.shape[1], Mx.shape[1]), dtype=torch.float32,
-                          device=vol.device)
+        out = torch.zeros((Mz.shape[1], My.shape[1], Mx.shape[1]),
+                          dtype=torch.float32, device=vol.device)
         for s in range(0, R, _RANK_CHUNK):
             e = s + _RANK_CHUNK
             out = out + _lowrank_chain(vm, Mz[s:e], My[s:e], Mx[s:e])

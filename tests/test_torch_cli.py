@@ -194,6 +194,86 @@ def test_deconvolve_matches_the_reference(work):
     assert _nrmse(got, want) < 1e-5
 
 
+def test_fuse_out_of_core_matches_the_reference(work, tmp_path):
+    """`fuse --out-of-core` (views staged into raw stores, streaming
+    fusion block by block) gives the in-memory verb's volume and the
+    reference's `fuse --out-of-core` (nrmse < 1e-5)."""
+    xr = os.path.join(work["ref"], "dataset.xml")
+    got_p, ref_p = str(tmp_path / "f_port.npy"), str(tmp_path / "f_ref.npy")
+    assert _port_dev("fuse", xr, "--bbox", "pts", "--out", got_p,
+                     "--out-of-core") == 0
+    assert ref_cli.main(["fuse", xr, "--bbox", "pts", "--out", ref_p,
+                         "--out-of-core"]) == 0
+    assert os.path.exists(got_p + ".ooc_tp0/fused.raw")
+    got = np.load(got_p)
+    assert _nrmse(got, np.load(work["root"] / "fused_port.npy")) < 1e-5
+    assert _nrmse(got, np.load(ref_p)) < 1e-5
+
+
+def test_deconvolve_out_of_core_matches_the_reference(work, tmp_path):
+    """`deconvolve --out-of-core` (streamed prep, blocked runner) within
+    nrmse 2e-3 of the in-memory verb (the reference test's bound: block-
+    sized FFTs) and 1e-5 of the reference's `--out-of-core`; with an
+    `.raw` output the psi store is the result, here at `--block-z 22`."""
+    xr = os.path.join(work["ref"], "dataset.xml")
+    deconv = ["--bbox", "roi", "--set", "deconvolution.num_iterations=2",
+              "--out-of-core"]
+    got_p, ref_p = str(tmp_path / "d_port.npy"), str(tmp_path / "d_ref.npy")
+    raw_p = str(tmp_path / "d_port.raw")
+    assert _port_dev("deconvolve", xr, *deconv, "--out", got_p) == 0
+    assert ref_cli.main(["deconvolve", xr, *deconv, "--out", ref_p]) == 0
+    assert _port_dev("deconvolve", xr, *deconv, "--out", raw_p,
+                     "--block-z", "22", "--ooc-workdir",
+                     str(tmp_path / "wd")) == 0
+    got = np.load(got_p)
+    assert got.shape == (44, 44, 44) and np.all(np.isfinite(got))
+    assert _nrmse(got, np.load(work["root"] / "psi_port.npy")) < 2e-3
+    assert _nrmse(got, np.load(ref_p)) < 1e-5
+    raw = np.fromfile(raw_p, np.float32).reshape(44, 44, 44)
+    assert _nrmse(raw, got) < 1e-5
+    assert os.path.exists(tmp_path / "wd" / "prep_img0.raw")
+
+
+def test_tune_prints_the_reference_table(work, capsys):
+    """`tune`: the same peak-count table and suggested threshold."""
+    xr = os.path.join(work["ref"], "dataset.xml")
+    out = {}
+    for name, run in (("ref", lambda *a: ref_cli.main([*a])),
+                      ("port", _port_dev)):
+        assert run("tune", xr, "--view", "0", "1",
+                   "--expected-points", "30") == 0
+        out[name] = capsys.readouterr().out
+    assert out["port"] == out["ref"]
+    assert "suggested threshold" in out["port"]
+
+
+def test_icp_refine_gives_the_reference_models(work, tmp_path, capsys):
+    """`icp-refine` on copies of the registered XML: the same "icp"
+    transforms (1e-4) and match counts."""
+    xml = {}
+    for name in ("ref", "port"):
+        shutil.copytree(work["ref"], tmp_path / name)
+        xml[name] = str(tmp_path / name / "dataset.xml")
+    assert ref_cli.main(["icp-refine", xml["ref"]]) == 0
+    ref_out = capsys.readouterr().out
+    assert _port_dev("icp-refine", xml["port"]) == 0
+    port_out = capsys.readouterr().out
+
+    def counts(text):
+        return [ln.split(" matches")[0] for ln in text.splitlines()
+                if "icp " in ln]
+    assert counts(port_out) == counts(ref_out) and len(counts(port_out)) == 2
+    got, want = (xml_io.load_dataset(xml["port"]),
+                 ref_xml.load_dataset(xml["ref"]))
+    for vid, w in want.views.items():
+        g = got.views[vid]
+        assert [t.name for t in g.transforms] == [t.name for t in
+                                                  w.transforms]
+        np.testing.assert_allclose(g.model(), w.model(), atol=1e-4, rtol=0)
+    assert [t.name for t in got.views[(0, 1)].transforms] == [
+        "icp", "registration"]
+
+
 def test_detect_dom_gives_the_reference_points(work, tmp_path, monkeypatch):
     monkeypatch.setenv("SPIM_COMPILE_CACHE", "0")
     xr = str(tmp_path / "ref" / "dataset.xml")

@@ -114,7 +114,11 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "utils.manifest", "ops.integral", "detect.dom", "detect.dog",
                 "ops.resample", "fuse.bounding_box", "fuse.weighted_avg",
                 "pipeline.config", "convert", "ops.kernels.dog",
-                "ops.kernels.lowrank_conv")
+                "ops.kernels.lowrank_conv", "native_blocks",
+                "deconv.blocked", "deconv.prep_streamed", "fuse.streaming",
+                "match.centerofmass", "match.icp", "ops.phase_correlation",
+                "pipeline.phase_init", "detect.tune",
+                "solve.optimization_types")
 
 _IMPORT_NEW = r"""
 import importlib, sys
@@ -170,6 +174,60 @@ def test_cli_path_entry_points_refuse_to_run_without_cuda(monkeypatch,
                  lambda: fuse_dataset(ds, [(0, 0)]),
                  lambda: resample_affine_auto(vol, np.eye(3, 4), (4, 4, 4)),
                  lambda: cli.main(["detect", str(tmp_path / "dataset.xml")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_out_of_core_and_extras_refuse_to_run_without_cuda(monkeypatch,
+                                                          tmp_path):
+    from spim_registration_tpu_torch.core.dataset import BoundingBox
+    from spim_registration_tpu_torch.detect.tune import (
+        suggest_threshold,
+        sweep_detection,
+    )
+    from spim_registration_tpu_torch.match.icp import icp_refine
+    from spim_registration_tpu_torch.ops.phase_correlation import (
+        phase_correlation_shift,
+    )
+    from spim_registration_tpu_torch.pipeline.phase_init import (
+        translation_init,
+    )
+    from spim_registration_tpu_torch.deconv.blocked import (
+        ArrayStore,
+        BlockedDeconvolutionInputs,
+        BlockedDeconvolutionRunner,
+    )
+    from spim_registration_tpu_torch.deconv.prep_streamed import (
+        prepare_views_streamed,
+    )
+    from spim_registration_tpu_torch.fuse.streaming import (
+        fuse_views_streaming,
+        streaming_content_lowres,
+    )
+    from spim_registration_tpu_torch.fuse.weights import (
+        ContentBasedParameters,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.ones((8, 8, 8), np.float32)
+    ident = np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
+    psf = np.ones((3, 3, 3), np.float32) / 27
+    bbox = BoundingBox("b", (0, 0, 0), (8, 8, 8))
+    inputs = BlockedDeconvolutionInputs([ArrayStore(vol)], [ArrayStore(vol)],
+                                        [psf], 1.0)
+    for call in (
+            lambda: BlockedDeconvolutionRunner(inputs, ArrayStore(vol)),
+            lambda: prepare_views_streamed(lambda v: vol, [ident], [psf],
+                                           bbox, str(tmp_path / "p")),
+            lambda: fuse_views_streaming([ArrayStore(vol)], [ident], bbox,
+                                         ArrayStore(vol)),
+            lambda: streaming_content_lowres(ArrayStore(vol),
+                                             ContentBasedParameters()),
+            lambda: icp_refine(vol[0], vol[0]),
+            lambda: phase_correlation_shift(vol, vol),
+            lambda: translation_init([vol, vol]),
+            lambda: sweep_detection(vol),
+            lambda: suggest_threshold(vol)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
@@ -596,3 +654,53 @@ def test_zfused_kernel_matches_plain_on_cuda():
         lc.zfused(torch.zeros((64, 64, 64), device="cuda",
                               dtype=torch.bfloat16), big, big, big, 40, 40, 40)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_blocked_lowrank_on_cuda():
+    """The out-of-core lowrank engine on the card: every block conv of a
+    bf16 run launches `zpass` and `sl_rows` (views x blocks x 2 convs x
+    iterations of each), and the run agrees with the same run on the CPU,
+    where the block convs take the kernels' plain versions (rounding
+    flips of one bf16 ULP compound over the iterations, hence 1e-3)."""
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.deconv import (
+        DeconvolutionParameters,
+        gaussian_psf,
+    )
+    from spim_registration_tpu_torch.deconv.blocked import (
+        ArrayStore,
+        BlockedDeconvolutionInputs,
+        BlockedDeconvolutionRunner,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    shape, V, bz, n_it = (48, 40, 72), 2, 16, 2
+    psfs = [gaussian_psf((9, 9, 9), (2.0, 1.0, 1.4)),
+            gaussian_psf((9, 9, 9), (1.0, 1.3, 2.0))]
+    imgs = rng.random((V,) + shape).astype(np.float32) + 0.1
+    w = np.full(shape, 1.0 / V, np.float32)
+    inputs = BlockedDeconvolutionInputs(
+        [ArrayStore(imgs[v]) for v in range(V)],
+        [ArrayStore(w) for _ in range(V)], psfs, 2.0)
+    params = DeconvolutionParameters(
+        num_iterations=n_it, conv_backend="lowrank", psf_rank=8,
+        psf_rank_tol=1e-3)
+    out = {}
+    for device in ("cuda", "cpu"):
+        psi = ArrayStore(np.zeros(shape, np.float32))
+        n0, n1 = lc.zpass.launches, lc.sl_rows.launches
+        runner = BlockedDeconvolutionRunner(inputs, psi, params,
+                                            block_z=bz, device=device)
+        runner.run()
+        torch.cuda.synchronize()
+        launched = (lc.zpass.launches - n0, lc.sl_rows.launches - n1)
+        n_mat = sum("mat" in e for e in runner.e1 + runner.e2)
+        want = n_it * (shape[0] // bz) * n_mat if device == "cuda" else 0
+        assert launched == (want, want), (device, launched)
+        out[device] = psi.array.copy()
+    assert np.all(np.isfinite(out["cuda"]))
+    chain = out["cpu"].astype(np.float64)
+    d = np.sqrt(np.mean((out["cuda"] - chain) ** 2))
+    assert d / (chain.max() - chain.min()) <= 1e-3
