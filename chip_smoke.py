@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sl-rows-of DIR # the rows pass alone
     python3 chip_smoke.py --segtopk-of DIR # the segment top-k alone
     python3 chip_smoke.py --dog-of DIR     # the fused DoG alone
+    python3 chip_smoke.py --zfused-of DIR  # the fully fused lowrank conv
 
 Drives the port (`spim_registration_tpu_torch`, never JAX or the JAX
 package) and exits nonzero on any failure:
@@ -76,7 +77,8 @@ wall; then a `kernels` JSON line, the nvidia-smi line, and last
 package (`zpass_alone`), `--sl-rows-of DIR` the rows pass of DIR's
 package (`sl_rows_alone`), `--segtopk-of DIR` the detection batch and
 the segment top-k, `--dog-of DIR` the fused DoG
-(`detection_kernel_alone`), without the result line: to compare two
+(`detection_kernel_alone`), `--zfused-of DIR` the fully fused lowrank
+conv (`zfused_alone`), without the result line: to compare two
 checkouts, run parent, change, change, parent in one call.
 """
 
@@ -651,6 +653,81 @@ def phase_kernels(runner) -> dict:
     }
 
 
+def zfused_plan_info(lc, shape, rads):
+    """The package's `zfused_plan` for a shape and half-supports as a
+    dict (tile rows, windows, x stage rows, shared memory, MACs a voxel
+    and rank), or None in a checkout without one."""
+    plan = getattr(lc, "zfused_plan", None)
+    p = plan(*shape, *rads) if plan else None
+    if p is None:
+        return None
+    return {"z": list(p.z), "y": list(p.y), "x": list(p.x), "nx": p.nx,
+            "smem": p.smem, "macs_per_voxel": p.macs_per_voxel(),
+            "axes": "n, h, window, tile, origin offset"}
+
+
+# zfused's seeded cases beside the 512^3 box: (name, rank, n) for an n^3
+# volume, 19 taps per axis (half-supports 9)
+ZFUSED_SEEDED = (("rank22", 22, 256), ("box208", 22, 208))
+
+
+def seeded_zfused(rng, rank: int, n: int, h: int = 9) -> tuple:
+    """Band matrices mirror-folded from seeded (2h + 1)-tap factors on
+    every axis of an n^3 volume (bf16 on the card) and a seeded f32
+    volume on the card."""
+    from spim_registration_tpu_torch.ops.separable import folded_conv_matrices
+
+    mats = [torch.from_numpy(M).cuda().to(torch.bfloat16)
+            for M in folded_conv_matrices(
+                *[rng.standard_normal((rank, 2 * h + 1)) * 0.3
+                  for _ in range(3)], (n, n, n))]
+    vol = torch.from_numpy(rng.random((n,) * 3).astype(np.float32)).cuda()
+    return mats, vol
+
+
+def zfused_alone() -> None:
+    """`--zfused-of DIR`: the fully fused lowrank conv of DIR's package
+    alone, at rank 22 on seeded 256^3 and 208^3 volumes (`ZFUSED_SEEDED`,
+    seed 0) against `conv_lowrank_folded` and against the zpass + sl_rows
+    pair, and on `zfused_512`'s box against the pair; each case with its
+    plan and the kernel's and the pair's times (`cuda_ms`) in this call.
+    Builds only zfused; compares two checkouts within one call."""
+    from spim_registration_tpu_torch.ops.kernels import build
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.separable import conv_lowrank_folded
+
+    lc._zfused_lib()
+    emit({"phase": "zfused_build", "ptxas": [
+        ln.strip() for ln in build.build_log("zfused").splitlines()
+        if "registers" in ln or "spill" in ln]})
+    rng = np.random.default_rng(0)
+    bad = []
+    h = 9
+    for name, rank, n in ZFUSED_SEEDED:
+        mats, vol = seeded_zfused(rng, rank, n, h)
+        vm = vol.to(torch.bfloat16)
+        got = lc.zfused(vm, *mats, h, h, h)
+        errs = {"plain": kernel_error(got, conv_lowrank_folded(vol, *mats)),
+                "pair": kernel_error(got, lc.conv_lowrank_folded_fused(
+                    vm, *mats, h, h, h))}
+        del got
+        bad += [f"{name} {k}" for k, e in errs.items() if not e["ok"]]
+        times = {"ms": cuda_ms(lambda: lc.zfused(vm, *mats, h, h, h), 10),
+                 "pair_ms": cuda_ms(lambda: lc.conv_lowrank_folded_fused(
+                     vm, *mats, h, h, h), 10)}
+        emit({"phase": "zfused", "case": name, "rank": rank, "shape": n,
+              "plan": zfused_plan_info(lc, (n, n, n), (h, h, h)),
+              "errors": errs, "times_ms": times})
+        del mats, vol, vm
+        torch.cuda.empty_cache()
+    big = zfused_512(rng)
+    if not big["error"]["ok"]:
+        bad.append("box512 pair")
+    emit({"phase": "zfused", "case": "box512", **big})
+    if bad:
+        raise AssertionError(f"zfused disagrees: {bad}")
+
+
 def phase_zfused(entry, psi) -> dict:
     """The fully fused lowrank conv (kernel #6) through its entry point
     `conv_lowrank_folded_zfused` on the staged highest-rank entry (the
@@ -659,10 +736,7 @@ def phase_zfused(entry, psi) -> dict:
     zpass + sl_rows pair; then a ragged 208^3 case (rank 22, 19 taps per
     axis, random factors); times, bound and launches."""
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
-    from spim_registration_tpu_torch.ops.separable import (
-        conv_lowrank_folded,
-        folded_conv_matrices,
-    )
+    from spim_registration_tpu_torch.ops.separable import conv_lowrank_folded
 
     Mz, My, Mx = (M[0] for M in entry["mat"])
     rads = entry["rad"]
@@ -680,11 +754,7 @@ def phase_zfused(entry, psi) -> dict:
                  psi, Mz, My, Mx, *rads))}
     rng = np.random.default_rng(4)
     n = 208
-    mats = [torch.from_numpy(M).cuda().to(torch.bfloat16)
-            for M in folded_conv_matrices(
-                *[rng.standard_normal((R, 19)) * 0.3 for _ in range(3)],
-                (n, n, n))]
-    vol = torch.from_numpy(rng.random((n,) * 3).astype(np.float32)).cuda()
+    mats, vol = seeded_zfused(rng, R, n)
     cases["ragged_208"] = kernel_error(
         lc.conv_lowrank_folded_zfused(vol, *mats, hz=9),
         conv_lowrank_folded(vol, *mats))
@@ -708,6 +778,8 @@ def phase_zfused(entry, psi) -> dict:
     emit({"phase": "kernels", "kernel": "zfused", "rank": R, "rad": [rz, ry,
                                                                     rx],
           "shape": [Z, Y, X], "cases": cases, "times_ms": times,
+          "plans": {"entry": zfused_plan_info(lc, (Z, Y, X), (rz, ry, rx)),
+                    "ragged_208": zfused_plan_info(lc, (n,) * 3, (9,) * 3)},
           "bytes": n_bytes, "ops": n_ops, "bound_ms": bound,
           "launches": launches, "box512": big})
     bad = [k for k, c in cases.items() if not c["ok"]]
@@ -752,6 +824,7 @@ def zfused_512(rng) -> dict:
     err = kernel_error(fused(), pair())
     torch.cuda.empty_cache()
     out = {"rank": R, "shape": [n, n, n], "rad": [h, h, h], "error": err,
+           "plan": zfused_plan_info(lc, (n,) * 3, (h,) * 3),
            "a_bytes": R * n ** 3 * 2,
            "pair_slabs": len(lc._z_slabs(n, R, n, n, 2)),
            "ms": cuda_ms(fused, 5), "pair_ms": cuda_ms(pair, 5)}
@@ -1785,13 +1858,15 @@ def main() -> int:
                        help="the same for the segment top-k")
     alone.add_argument("--dog-of", metavar="DIR",
                        help="the same for the fused Difference-of-Gaussian")
+    alone.add_argument("--zfused-of", metavar="DIR",
+                       help="the same for the fully fused lowrank conv")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA card", file=sys.stderr)
         return 1
     other = (args.zpass_of or args.sl_rows_of or args.segtopk_of
-             or args.dog_of)
+             or args.dog_of or args.zfused_of)
     sys.path.insert(0, str(Path(other or ROOT).resolve()))
     import spim_registration_tpu_torch  # noqa: F401  (fails without the repo)
 
@@ -1801,6 +1876,8 @@ def main() -> int:
             zpass_alone()
         elif args.sl_rows_of:
             sl_rows_alone()
+        elif args.zfused_of:
+            zfused_alone()
         else:
             from spim_registration_tpu_torch.utils.device import (
                 set_exact_float32,

@@ -48,6 +48,32 @@ def _interior_mask(shape, device) -> torch.Tensor:
         & axes[2][None, None, :]
 
 
+def local_extrema_mask(dog: torch.Tensor, find_maxima: bool = True,
+                       find_minima: bool = False) -> torch.Tensor:
+    """Boolean mask of strict 26-neighbourhood extrema (border excluded):
+    the reference's `local_extrema_mask`, the neighbours of an edge voxel
+    read from an edge-replicated pad."""
+    z, y, x = dog.shape
+    pad = F.pad(dog[None, None], (1, 1, 1, 1, 1, 1), mode="replicate")[0, 0]
+    is_max = torch.ones_like(dog, dtype=torch.bool)
+    is_min = torch.ones_like(dog, dtype=torch.bool)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dz == dy == dx == 0:
+                    continue
+                nb = pad[dz + 1:dz + 1 + z, dy + 1:dy + 1 + y,
+                         dx + 1:dx + 1 + x]
+                is_max &= dog > nb
+                is_min &= dog < nb
+    mask = torch.zeros_like(is_max)
+    if find_maxima:
+        mask |= is_max
+    if find_minima:
+        mask |= is_min
+    return mask & _interior_mask(dog.shape, dog.device)
+
+
 def _gather27(flat: torch.Tensor, base: torch.Tensor, YX: int,
               X: int) -> torch.Tensor:
     """(P, 27) neighbourhood values around flat base indices, raster

@@ -19,8 +19,9 @@ and, off the RL engine's path, the whole chain as one kernel:
 
 - `zfused` (csrc/zfused.cu): z, y and x passes and the rank sum per
   output tile, the tile's volume window read once and reused across all
-  ranks, no intermediate in device memory. Replaces `_zfused_kernel`;
-  `conv_lowrank_folded_zfused` is its public entry point.
+  ranks, no intermediate in device memory (`zfused_plan` sizes its tile
+  and windows). Replaces `_zfused_kernel`; `conv_lowrank_folded_zfused`
+  is its public entry point.
 
 Beside each wrapper sits its plain PyTorch version (`zpass_reference`,
 `fused_sl_reference`, `ops.separable.conv_lowrank_folded`) with the same
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -479,14 +481,156 @@ def band_radius(M: torch.Tensor) -> int:
     return int((j - i).abs().max())
 
 
+# csrc/zfused.cu's tiles: the z and y stages compute at most ZFUSED_ROWS
+# z and y rows a tile (their wgmma N), the x stage nx of _ZFUSED_NX x rows,
+# in the order `zfused_plan` tries them; windows are multiples of the MMA
+# depth and at most a TMA box's rows; three ring slots of band tiles and
+# two staging slots of their TMA boxes.
+ZFUSED_ROWS = 16
+_ZFUSED_NX = (24, 16)
+_ZFUSED_MAX_WINDOW = 256
+_ZFUSED_SLOTS = 3
+_ZFUSED_STAGES = 2
+
+
+class ZfusedAxis(NamedTuple):
+    """One axis of a `zfused` plan: length n, band half-support h, window
+    w (columns of the band a tile contracts), tile rows t, and the origin
+    offset c: tile k holds rows [k t - c, k t - c + t)."""
+    n: int
+    h: int
+    w: int
+    t: int
+    c: int = 0
+
+    @property
+    def tiles(self) -> int:
+        return -(-(self.n + self.c) // self.t)
+
+    def start(self, t0: int) -> int:
+        """The window's first column for the tile whose rows start at t0:
+        t0 - h clamped into the axis (0 where the axis is one window)."""
+        if self.n <= self.w:
+            return 0
+        return min(max(t0 - self.h, 0), self.n - self.w)
+
+
+class ZfusedPlan(NamedTuple):
+    """The `zfused` launch: the z, y and x axes, the x stage's rows nx and
+    the block's shared-memory bytes."""
+    z: ZfusedAxis
+    y: ZfusedAxis
+    x: ZfusedAxis
+    nx: int
+    smem: int
+
+    def macs_per_rank(self) -> int:
+        """The tensor-core MACs a tile and rank: the z stage over every
+        8 x 8 patch of the y/x window (16 z rows, K = wz), the y stage over
+        each x group's z rows in groups of 8 (K = wy), the x stage over
+        64-row chunks of (z row, y row) pairs (K = wx)."""
+        z, y, x, n = self.z, self.y, self.x, ZFUSED_ROWS
+        return (y.w * x.w * n * z.w + -(-z.t // 8) * x.w * 8 * n * y.w
+                + -(-z.t * n // 64) * 64 * self.nx * x.w)
+
+    def macs_per_voxel(self) -> float:
+        """`macs_per_rank` over a whole tile's output voxels."""
+        return self.macs_per_rank() / (self.z.t * self.y.t * self.x.t)
+
+
+def _zfused_smem(wz: int, wy: int, wx: int, nx: int) -> int:
+    """Shared-memory bytes of a zfused block (csrc/zfused.cu
+    `smem_bytes`): 1024 bytes of alignment, 64 of mbarriers, the volume
+    window (wz x wy x wx), `a` (16 z rows x (wy + 1) x wx: each 8-column
+    group of each z row padded by one row), `b` (16 z rows x 16 y rows x
+    wx), three ring slots of band tiles (16 x wz, 16 x wy, nx x wx) and
+    two staging slots of their TMA boxes (16 x (wz + 8), 16 x (wy + 8),
+    nx x wx), all bf16."""
+    n = ZFUSED_ROWS
+    return 1088 + 2 * (wz * wy * wx + n * (wy + 1) * wx + n * n * wx
+                       + _ZFUSED_SLOTS * (n * wz + n * wy + nx * wx)
+                       + _ZFUSED_STAGES * (n * (wz + 8) + n * (wy + 8)
+                                           + nx * wx))
+
+
+def _zfused_windows(n: int, h: int, rows: int, step: int = 1) -> list:
+    """The (window, tile rows, origin offset) choices of one axis, the
+    largest tile first: the whole axis as one window where that is no
+    wider than the widest window; otherwise windows of the MMA depth from
+    the narrowest whose tile holds `rows` rows (rows - 2 with step 1) down,
+    each with min(rows, w - 2h) rows cut to a multiple of `step`. With
+    step 8 (the x axis) the tiles start at an offset c = -h mod 8, so that
+    every window starts on an 8-column group, as a TMA box must."""
+    full = _round_up(2 * h + rows - (2 if step == 1 else 0), _MMA_DEPTH)
+    whole = _round_up(n, _MMA_DEPTH)
+    if whole <= full:
+        return [(whole, rows, 0)]
+    c = -h % step
+    return [(w, min(rows, w - 2 * h) // step * step, c)
+            for w in range(full, 2 * h, -_MMA_DEPTH)
+            if min(rows, w - 2 * h) >= step]
+
+
+def zfused_plan(Z: int, Y: int, X: int, hz: int, hy: int,
+                hx: int) -> ZfusedPlan | None:
+    """The `zfused` launch for a (Z, Y, X) volume and band half-supports:
+    for each nx of _ZFUSED_NX, the largest window of each axis
+    (`_zfused_windows`: z and y with 16 rows, x tiles of multiples of 8),
+    narrowing the widest window one step at a time until the block fits
+    shared memory; None where nothing fits (or a window exceeds a TMA box
+    or a grid axis its limit)."""
+    for nx in _ZFUSED_NX:
+        opts = [_zfused_windows(Z, hz, ZFUSED_ROWS),
+                _zfused_windows(Y, hy, ZFUSED_ROWS),
+                _zfused_windows(X, hx, nx, 8)]
+        pick = [0, 0, 0]
+        while all(opts):
+            ws = [o[i][0] for o, i in zip(opts, pick)]
+            smem = _zfused_smem(*ws, nx)
+            if smem <= _SMEM_MAX and max(ws) <= _ZFUSED_MAX_WINDOW:
+                axes = [ZfusedAxis(n, h, *o[i]) for (n, h), o, i in
+                        zip(((Z, hz), (Y, hy), (X, hx)), opts, pick)]
+                if max(axes[0].tiles, axes[1].tiles) > 65535:
+                    break
+                return ZfusedPlan(*axes, nx, smem)
+            narrow = [a for a in range(3) if pick[a] + 1 < len(opts[a])]
+            if not narrow:
+                break
+            a = max(narrow, key=lambda k: ws[k])
+            pick[a] += 1
+    return None
+
+
+def zfused_tma_load(vm: torch.Tensor, Mz: torch.Tensor, My: torch.Tensor,
+                    Mx: torch.Tensor, plan: ZfusedPlan) -> bool:
+    """Whether the zfused kernel loads by TMA: rows of Z, Y and X a
+    multiple of 16 bytes (so that every x window, which starts on an
+    8-column group, starts a box on 16 bytes), 16-byte aligned bases, and
+    every axis at least as long as the boxes that read it (the volume
+    window on z and y, the band tiles' rows). Other inputs take every
+    thread's element copies into the same layouts."""
+    Z, Y, X = vm.shape
+    return (Z % 8 == 0 and Y % 8 == 0 and X % 8 == 0
+            and Z >= max(plan.z.w, ZFUSED_ROWS)
+            and Y >= max(plan.y.w, ZFUSED_ROWS) and X >= plan.nx
+            and all(t.data_ptr() % 16 == 0 for t in (vm, Mz, My, Mx)))
+
+
 @functools.lru_cache(maxsize=None)
 def _zfused_lib():
     lib = build.load("zfused")
-    lib.spim_zfused_smem.argtypes = [ctypes.c_int] * 6
+    lib.spim_zfused_smem.argtypes = [ctypes.c_int] * 4
     lib.spim_zfused_smem.restype = ctypes.c_int
-    lib.spim_zfused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+    lib.spim_zfused.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     lib.spim_zfused.restype = ctypes.c_int
+    for ws in ((32, 32, 48), (32, 48, 32), (64, 64, 64), (96, 96, 96)):
+        for nx in _ZFUSED_NX:
+            want = _zfused_smem(*ws, nx)
+            if lib.spim_zfused_smem(*ws, nx) != (
+                    want if want <= _SMEM_MAX else -1):
+                raise RuntimeError("csrc/zfused.cu shared memory differs "
+                                   "from zfused_plan")
     return lib
 
 
@@ -499,7 +643,8 @@ def zfused(vm: torch.Tensor, Mz: torch.Tensor, My: torch.Tensor,
     `band_radius` measures it): this launch wrapper takes them as given,
     as `zpass` takes its windows; `conv_lowrank_folded_zfused` checks them.
     CPU tensors take `ops.separable.conv_lowrank_folded` (in float32);
-    CUDA tensors launch `csrc/zfused.cu` (bfloat16 only)."""
+    CUDA tensors launch `csrc/zfused.cu` (bfloat16 only) on `zfused_plan`,
+    and raise ValueError where no plan fits."""
     if all(t.device.type == "cpu" for t in (vm, Mz, My, Mx)):
         return conv_lowrank_folded(vm.float(), Mz, My, Mx)
     code = _check_cuda("zfused", vm, Mz, My, Mx)
@@ -513,15 +658,18 @@ def zfused(vm: torch.Tensor, Mz: torch.Tensor, My: torch.Tensor,
                          f"{tuple(Mz.shape)}, My {tuple(My.shape)}, Mx "
                          f"{tuple(Mx.shape)}: needs square (R, n, n) "
                          f"matrices per axis")
-    lib = _zfused_lib()
-    if lib.spim_zfused_smem(Z, Y, X, hz, hy, hx) < 0:
+    plan = zfused_plan(Z, Y, X, hz, hy, hx)
+    if plan is None:
         raise ValueError(f"zfused: the kernel cannot take {(Z, Y, X)} with "
                          f"half-supports {(hz, hy, hx)} (shared memory)")
+    lib = _zfused_lib()
     out = torch.empty((Z, Y, X), dtype=torch.float32, device=vm.device)
     err = lib.spim_zfused(
         vm.data_ptr(), Mz.data_ptr(), My.data_ptr(), Mx.data_ptr(),
-        out.data_ptr(), R, Z, Y, X, hz, hy, hx,
-        torch.cuda.current_stream(vm.device).cuda_stream)
+        out.data_ptr(), R, Z, Y, X, hz, hy, hx, plan.z.w, plan.y.w,
+        plan.x.w, plan.z.t, plan.y.t, plan.x.t, plan.x.c, plan.nx,
+        int(zfused_tma_load(vm, Mz, My, Mx, plan)),
+        torch._C._cuda_getCurrentRawStream(vm.get_device()))
     _raise_on(err, "zfused")
     zfused.launches += 1
     return out

@@ -145,6 +145,105 @@ def test_zfused_rejects_a_z_half_support_below_the_band():
     assert lc.conv_lowrank_folded_zfused(v, *tm, hz=hz).shape == vol.shape
 
 
+# (shape, half-supports): the main path's boxes and the CUDA test's cases
+_ZFUSED_PLAN_CASES = [((256, 256, 256), (9, 9, 9)),
+                      ((208, 208, 208), (9, 9, 9)),
+                      ((512, 512, 512), (9, 9, 9)),
+                      ((32, 16, 128), (3, 4, 2)),
+                      ((37, 50, 300), (4, 3, 9)),
+                      ((40, 20, 45), (9, 1, 0)),
+                      ((64, 48, 64), (9, 9, 9)),
+                      ((61, 45, 62), (9, 9, 9)),
+                      ((56, 40, 64), (8, 5, 2)),
+                      ((20, 20, 20), (30, 30, 30)),
+                      ((64, 64, 64), (15, 15, 15))]
+
+
+@pytest.mark.parametrize("shape,rads", _ZFUSED_PLAN_CASES)
+def test_zfused_plan_windows_cover_each_tile_within_shared_memory(shape,
+                                                                   rads):
+    """`zfused_plan`: every tile's window (its clamped start, as
+    csrc/zfused.cu's `win_start`) holds every band column of the tile's
+    rows on each axis, the tiles (from the axis' origin offset) cover it,
+    every x window starts on an 8-column group where X is a multiple of 8
+    (a TMA box's start), windows are multiples of the MMA depth and at
+    most a TMA box, tiles at most the stages' rows, the grid within its
+    limits and the block within the card's 227 KB."""
+    p = lc.zfused_plan(*shape, *rads)
+    assert p is not None
+    assert p.smem == lc._zfused_smem(p.z.w, p.y.w, p.x.w, p.nx)
+    assert p.smem <= 232448
+    assert p.nx in (24, 16)
+    assert p.z.c == p.y.c == 0 and 0 <= p.x.c < 8
+    for a, rows in ((p.z, 16), (p.y, 16), (p.x, p.nx)):
+        assert a.w % 16 == 0 and 16 <= a.w <= 256 and 1 <= a.t <= rows
+        assert (a.tiles - 1) * a.t - a.c < a.n <= a.tiles * a.t - a.c
+        for k in range(a.tiles):
+            t0 = k * a.t - a.c
+            s = a.start(t0)
+            assert 0 <= s and (s + a.w <= a.n or s == 0)
+            if a is p.x and a.n % 8 == 0:
+                assert s % 8 == 0
+            for i in range(max(t0, 0), min(t0 + a.t, a.n)):
+                assert s <= max(i - a.h, 0)
+                assert min(i + a.h, a.n - 1) < s + a.w
+    assert p.z.tiles <= 65535 and p.y.tiles <= 65535
+
+
+def test_zfused_plan_of_the_main_path():
+    """At half-supports 9 (the staged RL entries, 256^3, 208^3, 512^3):
+    14 z x 14 y x 24 x tiles on 32 x 32 x 48 windows, the x tiles from
+    -7 so that each x window starts on an 8-column group, 197,440 bytes of
+    shared memory, 1,474,560 MACs a tile and rank (313 a voxel; the band
+    needs 57); and no plan where no window fits, as at half-support 40 on
+    64^3."""
+    for n in (256, 208, 512):
+        p = lc.zfused_plan(n, n, n, 9, 9, 9)
+        assert [(a.w, a.t, a.c) for a in p[:3]] == [(32, 14, 0), (32, 14, 0),
+                                                     (48, 24, 7)]
+        assert (p.nx, p.smem) == (24, 197440)
+        assert p.macs_per_rank() == 1474560
+        assert round(p.macs_per_voxel()) == 313
+    assert lc.zfused_plan(64, 64, 64, 40, 40, 40) is None
+
+
+@pytest.mark.parametrize("shape,rads,rank", [((37, 50, 45), (4, 3, 9), 3),
+                                             ((40, 20, 45), (9, 1, 0), 2),
+                                             ((33, 31, 70), (9, 9, 9), 2)])
+def test_zfused_plan_tiles_reproduce_the_plain_conv(shape, rads, rank):
+    """The tiling of `zfused_plan` run in float32 on the CPU: each tile
+    contracts z, y and x only over its windows (z rows x window, then the
+    y window, then the x window, rank sum inside the tile), as the kernel
+    does; the assembled output equals `conv_lowrank_folded` within f32
+    summation order."""
+    from spim_registration_tpu_torch.ops.separable import conv_lowrank_folded
+
+    rng = np.random.default_rng(5)
+    mats = [torch.from_numpy(M) for M in folded_conv_matrices(
+        *[rng.standard_normal((rank, 2 * h + 1)) for h in rads], shape)]
+    vol = torch.from_numpy(rng.random(shape).astype(np.float32))
+    p = lc.zfused_plan(*shape, *rads)
+    Mz, My, Mx = mats
+    out = torch.full(shape, float("nan"))
+    starts = [range(-a.c, a.n, a.t) for a in p[:3]]
+    for z0 in starts[0]:
+        for y0 in starts[1]:
+            for x0 in starts[2]:
+                (sz, ez), (sy, ey), (sx, ex) = [
+                    (a.start(t0), min(a.start(t0) + a.w, a.n))
+                    for a, t0 in ((p.z, z0), (p.y, y0), (p.x, x0))]
+                zr, yr, xr = (slice(max(t0, 0), t0 + a.t) for a, t0 in
+                              ((p.z, z0), (p.y, y0), (p.x, x0)))
+                v = vol[sz:ez, sy:ey, sx:ex]
+                a_ = torch.einsum("rzk,kyx->rzyx", Mz[:, zr, sz:ez], v)
+                b_ = torch.einsum("ryk,rzkx->rzyx", My[:, yr, sy:ey], a_)
+                out[zr, yr, xr] = torch.einsum("rxk,rzyk->zyx",
+                                               Mx[:, xr, sx:ex], b_)
+    want = conv_lowrank_folded(vol, *mats)
+    assert not torch.isnan(out).any()
+    assert _nrmse(out.numpy(), want.numpy()) < 1e-6
+
+
 def test_band_radius_of_folded_matrices():
     """The y/x half-supports the wrapper measures are the factor banks'
     own, mirror folds included."""

@@ -630,13 +630,25 @@ def test_zfused_kernel_matches_plain_on_cuda():
     )
 
     rng = np.random.default_rng(3)
-    for shape, R, taps in (((32, 16, 128), 4, (7, 9, 5)),
-                           ((37, 50, 300), 3, (9, 7, 19)),
-                           ((40, 20, 45), 5, (19, 3, 1))):
+    # then `zfused_plan`'s main-path tiling (14 x 14 x 24 at half-supports
+    # 9, rank 22) with a ragged tile edge on every axis, by TMA and
+    # (X % 8 != 0) by element copies; half-supports that differ on every
+    # axis; and half-supports 15 (the 16-row x tiles); `tma`: the route the
+    # host picks
+    for shape, R, taps, tma in (((32, 16, 128), 4, (7, 9, 5), True),
+                                ((37, 50, 300), 3, (9, 7, 19), False),
+                                ((40, 20, 45), 5, (19, 3, 1), False),
+                                ((64, 48, 64), 22, (19, 19, 19), True),
+                                ((61, 45, 62), 22, (19, 19, 19), False),
+                                ((56, 40, 64), 6, (17, 11, 5), True),
+                                ((64, 64, 64), 3, (31, 31, 31), True)):
         facs = [rng.standard_normal((R, t)) for t in taps]
         Ms = [torch.from_numpy(M).cuda().to(torch.bfloat16)
               for M in folded_conv_matrices(*facs, shape)]
         vol = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+        plan = lc.zfused_plan(*shape, (taps[0] - 1) // 2,
+                              lc.band_radius(Ms[1]), lc.band_radius(Ms[2]))
+        assert lc.zfused_tma_load(vol.to(torch.bfloat16), *Ms, plan) == tma
         n0 = lc.zfused.launches
         got = lc.conv_lowrank_folded_zfused(vol, *Ms, hz=(taps[0] - 1) // 2)
         assert lc.zfused.launches == n0 + 1

@@ -14,6 +14,7 @@ suggested thresholds within 1e-6 relative (f32 DoG responses); the
 pair-selection lists equal.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,12 +22,14 @@ import torch
 from spim_registration_tpu.detect import tune as ref_tune
 from spim_registration_tpu.match import centerofmass as ref_com
 from spim_registration_tpu.match import icp as ref_icp
+from spim_registration_tpu.ops import extrema as ref_extrema
 from spim_registration_tpu.ops import phase_correlation as ref_pc
 from spim_registration_tpu.pipeline import phase_init as ref_pi
 from spim_registration_tpu.solve import optimization_types as ref_ot
 from spim_registration_tpu_torch.detect import tune
 from spim_registration_tpu_torch.match import centerofmass, icp
 from spim_registration_tpu_torch.ops import phase_correlation as pc
+from spim_registration_tpu_torch.ops.extrema import local_extrema_mask
 from spim_registration_tpu_torch.pipeline import phase_init
 from spim_registration_tpu_torch.solve import optimization_types as ot
 from spim_registration_tpu_torch.utils.simulation import render_beads
@@ -134,6 +137,32 @@ def test_sweep_detection_counts_match_reference():
     want = ref_tune.sweep_detection(vol)
     assert got == want
     assert got[(1.8, 0.02)] >= 40
+
+
+def test_sweep_detection_counts_match_reference_at_thresholds_to_zero():
+    """At t <= 0 the reference also counts every voxel off the extremum
+    mask (its response is set to 0), at t > 0 only the maxima."""
+    vol = np.random.default_rng(2).random((24, 24, 24)).astype(np.float32)
+    ts = (-0.001, 0.0, 0.002)
+    got = tune.sweep_detection(vol, sigmas=(1.4, 1.8), thresholds=ts,
+                               device="cpu")
+    want = ref_tune.sweep_detection(vol, sigmas=(1.4, 1.8), thresholds=ts)
+    assert got == want
+    assert got[(1.8, 0.0)] > vol.size // 2 > got[(1.8, 0.002)] > 0
+
+
+@pytest.mark.parametrize("maxima,minima", [(True, False), (False, True),
+                                           (True, True)])
+def test_local_extrema_mask_matches_reference(maxima, minima):
+    rng = np.random.default_rng(6)
+    dog = rng.standard_normal((9, 12, 11)).astype(np.float32)
+    dog[4, 5, 5] = dog[4, 5, 6]           # a tie: strict on neither side
+    got = local_extrema_mask(torch.from_numpy(dog), maxima, minima).numpy()
+    want = np.asarray(ref_extrema.local_extrema_mask(jnp.asarray(dog),
+                                                     maxima, minima))
+    assert got.dtype == want.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
 
 
 @pytest.mark.parametrize("expected", [None, 50])
