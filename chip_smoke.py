@@ -61,13 +61,25 @@ package) and exits nonzero on any failure:
    iteration (phase 3 also holds `zfused` against the zpass + sl_rows
    pair at rank 22 on 512^3);
 10. the headless CLI over one dataset XML (simulate 4 x 256^3 -> detect
-   -> register -> fuse -> deconvolve with the lowrank backend and with
+   -> register -> cluster-job and cluster-merge on a copy of the
+   simulated XML -> fuse -> deconvolve with the lowrank backend and with
    the FFT backend -> info; then `fuse --out-of-core`, `deconvolve
    --out-of-core --block-z 64` on a 256^3 box, `tune`, `icp-refine`),
    each verb through `cli.main` in-process: per-verb walls, kernel
-   launches, the registration against the simulated truth, the
-   sharpening, lowrank against FFT and each out-of-core verb against its
-   in-memory run.
+   launches, the registration against the simulated truth, the merged
+   job against `detect` and `register`, the sharpening, lowrank against
+   FFT and each out-of-core verb against its in-memory run;
+11. the timelapse and cluster path (`phase_timelapse`):
+   `register_timeseries` over 3 timepoints x 4 views of 256^3 (drift
+   against the truth, segtopk launches), then BASELINE config #5
+   (examples/timelapse_stress.py: 2 x 2 x 2 tiles x 6 views of 96^3) at
+   its per-timepoint width over 4 of its 20 timepoints: `.npy` views and
+   a master XML, a `run_job` a timepoint (detection, per-tile
+   registration), `merge_cluster_jobs`, stabilization against the
+   reference timepoint, streaming fusion; stage walls, ms a detected
+   view, registrations/s, the device's idle share over one timepoint's
+   jobs and over a row of fusion blocks, one tile on the card against
+   the CPU and the streamed fusion against the in-memory one.
 
 Each phase prints one JSON line, and a `walls` line gives every phase's
 wall; then a `kernels` JSON line, the nvidia-smi line, and last
@@ -122,6 +134,19 @@ OOC_BIG, OOC_BIG_ITERS = 512, 2
 CLI_OOC_FUSE_TOL = 1e-5
 # `icp_refine`'s matrix on the card against the CPU's (f32 fits)
 CLI_ICP_TOL = 1e-4
+# `cluster-job`'s registered models against the `register` verb's (the
+# same points, there read back from the XML's 6 decimals)
+CLI_CLUSTER_TOL = 1e-4
+# the timelapse phase: `register_timeseries` timepoints at the pipeline's
+# width, and BASELINE config #5 (examples/timelapse_stress.py) at its
+# per-timepoint width with its timepoints cut for the time limit
+TL_TPS = 3
+STRESS = {"tiles": (2, 2, 2), "views": 6, "tile_size": 96,
+          "beads_per_tile": 120, "overlap": 0.25, "published_tps": 20,
+          "tps": 4, "fused_tps": (0, 2),
+          "reduced": ["timepoints 20 -> 4 (time limit)",
+                      "streaming fusion of timepoints 0 and 2 (the "
+                      "reference) of the 4 (time limit)"]}
 
 
 def emit(obj) -> None:
@@ -1177,7 +1202,10 @@ def phase_cli() -> None:
     view (0, 0); `icp-refine` on a copy of the registered XML. The two
     new verbs' library calls are also held card against CPU on their
     inputs: `sweep_detection`'s peak counts exact, each view's
-    `icp_refine` matrix within CLI_ICP_TOL."""
+    `icp_refine` matrix within CLI_ICP_TOL. `cluster-job --tp 0` and
+    `cluster-merge` run on a copy of the simulated XML taken before
+    `detect`: the merged points equal `detect`'s, the merged models
+    `register`'s within CLI_CLUSTER_TOL."""
     import contextlib
     import io
     import shutil
@@ -1199,6 +1227,12 @@ def phase_cli() -> None:
                 "fused.npy", "psi.npy", "psi_fft.npy", "fused_ooc.npy",
                 "psi_box.npy", "psi_box_ooc.npy"))
         icp_xml = os.path.join(d, "icp.xml")
+        # the cluster verbs run on a copy of the simulated XML in a
+        # directory of its own (its interest point files apart from the
+        # main XML's), beside links to the same volumes
+        cdir = os.path.join(d, "cluster")
+        cxml, cjob = (os.path.join(cdir, f) for f in ("dataset.xml",
+                                                      "job_tp0.xml"))
         lowrank = ["--set", "deconvolution.conv_backend=lowrank",
                    "--set", "deconvolution.num_iterations=10",
                    "--set", "deconvolution.psf_rank_tol=0.01"]
@@ -1208,6 +1242,9 @@ def phase_cli() -> None:
                          "--blur", "--seed", "11"],
             "detect": ["detect", xml],
             "register": ["register", xml],
+            "cluster_job": ["cluster-job", cxml, "--tp", "0", "--out",
+                            cjob],
+            "cluster_merge": ["cluster-merge", cxml, cjob],
             "fuse": ["fuse", xml, "--out", fused_p],
             "deconvolve": ["deconvolve", xml, "--out", psi_p, *lowrank],
             "deconvolve_fft": ["deconvolve", xml, "--out", fft_p,
@@ -1228,6 +1265,13 @@ def phase_cli() -> None:
         for name, argv in verbs.items():
             if name == "icp_refine":
                 shutil.copy(xml, icp_xml)
+            if name == "detect":
+                os.makedirs(cdir)
+                shutil.copy(xml, cxml)
+                for f in os.listdir(d):
+                    if f.startswith("tp") and f.endswith(".npy"):
+                        os.symlink(os.path.join(d, f),
+                                   os.path.join(cdir, f))
             buf = io.StringIO()
             reset_launches()
             torch.cuda.synchronize()
@@ -1252,6 +1296,18 @@ def phase_cli() -> None:
                 (p @ A[:, :3].T + A[:, 3]) - (p @ T[:, :3].T + T[:, 3]),
                 axis=1))))
         names = [[t.name for t in v.transforms] for v in views]
+        merged = load_dataset(cxml)
+        cluster = {"points_equal_detect": [], "model_diff": [],
+                   "transforms": [], "backup": os.path.exists(cxml + "~1")}
+        for v in views:
+            m = merged.views[v.view_id]
+            a, b = m.interest_points["beads"], v.interest_points["beads"]
+            cluster["points_equal_detect"].append(
+                bool(np.array_equal(a.points, b.points)
+                     and np.array_equal(a.intensities, b.intensities)))
+            cluster["model_diff"].append(float(np.abs(
+                m.model() - v.model()).max()))
+            cluster["transforms"].append([t.name for t in m.transforms])
         icp_names = [[t.name for t in v.transforms]
                      for v in load_dataset(icp_xml).views_of_timepoint(0)]
         fused, psi, psi_fft, fused_ooc, box, box_ooc = (
@@ -1300,6 +1356,7 @@ def phase_cli() -> None:
                                in sorted(sweeps["cuda"].items())],
            "tune_table_card_equals_cpu": sweeps["cuda"] == sweeps["cpu"]}
     emit({"phase": "cli", "views": N_VIEWS, "shape": list(SHAPE),
+          "cluster": cluster, "cluster_model_tol": CLI_CLUSTER_TOL,
           "out_of_core_and_extras": ooc,
           "walls_s": walls, "launches": launches,
           "points_per_view": n_pts, "transforms": names,
@@ -1317,6 +1374,16 @@ def phase_cli() -> None:
         raise AssertionError(f"cli registration error {errs} px >= 0.5")
     if launches["detect"]["segtopk"] == 0:
         raise AssertionError(f"detect did not run segtopk: {launches}")
+    # the merged job gives the `detect` verb's points and, within the
+    # card's f32 rounding of points read back from the XML's 6 decimals,
+    # the `register` verb's models
+    if not (all(cluster["points_equal_detect"])
+            and max(cluster["model_diff"]) <= CLI_CLUSTER_TOL
+            and all(n == ["registration"] for n in cluster["transforms"])
+            and cluster["backup"]
+            and launches["cluster_job"]["segtopk"] == N_VIEWS):
+        raise AssertionError(f"cluster-job / cluster-merge: {cluster}, "
+                             f"launches {launches['cluster_job']}")
     if launches["deconvolve"]["zpass"] == 0 \
             or launches["deconvolve"]["sl_rows"] == 0:
         raise AssertionError(f"deconvolve did not run the kernels: "
@@ -1672,6 +1739,30 @@ def phase_match() -> None:
         raise AssertionError(f"global solve residual {gres.max_error} px")
 
 
+def pipeline_scene():
+    """The reconstruction's simulated acquisition: 4 views of 256^3, 300
+    beads (sigma 0.8) blurred by per-view PSFs, noise 0.003, seed 11."""
+    from spim_registration_tpu_torch.utils.simulation import (
+        make_multiview_scene,
+    )
+
+    return make_multiview_scene(
+        np.random.default_rng(11), n_views=N_VIEWS, shape=SHAPE,
+        n_beads=300, bead_sigma=0.8, noise=0.003,
+        psf_sigmas=[(2.5, 1.0, 1.0), (1.0, 1.0, 2.5), (2.0, 1.2, 1.2),
+                    (1.2, 1.2, 2.0)])
+
+
+def pipeline_registration_config():
+    from spim_registration_tpu_torch.detect import DoGParameters
+    from spim_registration_tpu_torch.match import PairwiseParameters
+    from spim_registration_tpu_torch.pipeline import RegistrationConfig
+
+    return RegistrationConfig(
+        detection=DoGParameters(sigma=2.0, threshold=0.008),
+        pairwise=PairwiseParameters(model="affine", max_points=512))
+
+
 def phase_pipeline() -> None:
     """Simulated views -> register_views -> PSFs -> prep -> fusion ->
     deconvolution through the public entry points, on the registered
@@ -1684,31 +1775,17 @@ def phase_pipeline() -> None:
         extract_psf,
         prepare_views_for_deconvolution,
     )
-    from spim_registration_tpu_torch.detect import DoGParameters
     from spim_registration_tpu_torch.fuse import FusionParameters, fuse_views
-    from spim_registration_tpu_torch.match import PairwiseParameters
-    from spim_registration_tpu_torch.pipeline import (
-        RegistrationConfig,
-        register_views,
-    )
-    from spim_registration_tpu_torch.utils.simulation import (
-        make_multiview_scene,
-    )
+    from spim_registration_tpu_torch.pipeline import register_views
 
     walls = {}
     t0 = time.perf_counter()
-    scene = make_multiview_scene(
-        np.random.default_rng(11), n_views=N_VIEWS, shape=SHAPE,
-        n_beads=300, bead_sigma=0.8, noise=0.003,
-        psf_sigmas=[(2.5, 1.0, 1.0), (1.0, 1.0, 2.5), (2.0, 1.2, 1.2),
-                    (1.2, 1.2, 2.0)])
+    scene = pipeline_scene()
     walls["simulate_s"] = time.perf_counter() - t0
     lo, hi = (24, 24, 24), (232, 232, 232)       # 208^3: ragged tiles
     bbox = BoundingBox("b", lo, hi)
 
-    cfg = RegistrationConfig(
-        detection=DoGParameters(sigma=2.0, threshold=0.008),
-        pairwise=PairwiseParameters(model="affine", max_points=512))
+    cfg = pipeline_registration_config()
     reset_launches()
     reg, walls["register_views_s"] = sync_wall(
         lambda: register_views(scene.volumes, cfg))
@@ -1782,6 +1859,416 @@ def phase_pipeline() -> None:
     if launches["zpass"] == 0 or launches["sl_rows"] == 0:
         raise AssertionError(f"deconvolve did not run the kernels: "
                              f"{launches}")
+
+
+def timelapse_series() -> dict:
+    """`register_timeseries` at the pipeline's width: TL_TPS timepoints x
+    4 views of 256^3. Timepoint 0 is the pipeline phase's scene; each later
+    one is the whole sample drifted in the world by a seeded uniform +-3 px
+    translation (seed 12), each view re-rendered (`render_beads`, sigma
+    1.7, noise 0.003), as tests/test_timelapse_cluster.py builds its
+    series. The default (middle) reference timepoint; the pipeline phase's
+    registration parameters."""
+    from spim_registration_tpu_torch.pipeline.timelapse import (
+        register_timeseries,
+    )
+    from spim_registration_tpu_torch.utils.simulation import render_beads
+
+    scene = pipeline_scene()
+    rng = np.random.default_rng(12)
+    drifts = {0: np.zeros(3)}
+    vols = {0: scene.volumes}
+    view_pts = {0: scene.view_points}
+    invs = [np.linalg.inv(np.vstack([A, [0, 0, 0, 1]]))[:3]
+            for A in scene.models]
+    for tp in range(1, TL_TPS):
+        drifts[tp] = rng.uniform(-3, 3, 3)
+        world = scene.world_points - drifts[tp]
+        view_pts[tp] = [world @ M[:, :3].T + M[:, 3] for M in invs]
+        vols[tp] = [render_beads(p, SHAPE, 1.7)
+                    + rng.normal(0, 0.003, SHAPE).astype(np.float32)
+                    for p in view_pts[tp]]
+    reset_launches()
+    res, wall = sync_wall(lambda: register_timeseries(
+        vols, pipeline_registration_config()))
+    launches = read_launches()
+    ref = TL_TPS // 2
+    # S maps timepoint tp's registered frame (view 0's, the world less
+    # drifts[tp]) onto the reference's: a translation by the drift
+    # difference; the final model of (tp, v) is the true view model plus it
+    drift_err = {tp: float(np.abs(res.stabilization[tp][:, 3]
+                                  - (drifts[tp] - drifts[ref])).max())
+                 for tp in drifts}
+    model_err = {}
+    for (tp, v), F in res.models.items():
+        p = view_pts[tp][v]
+        T = scene.models[v]
+        want = p @ T[:, :3].T + T[:, 3] + (drifts[tp] - drifts[ref])
+        model_err[f"{tp},{v}"] = float(np.mean(np.linalg.norm(
+            p @ F[:, :3].T + F[:, 3] - want, axis=1)))
+    stats = {s.timepoint: {"candidates": s.num_candidates,
+                           "inliers": s.num_inliers,
+                           "mean_error_px": s.mean_error,
+                           "max_error_px": s.max_error, "valid": s.valid}
+             for s in res.statistics}
+    out = {"timepoints": TL_TPS, "views": N_VIEWS, "shape": list(SHAPE),
+           "reference_tp": ref, "wall_s": wall,
+           "drift_px": {tp: d.tolist() for tp, d in drifts.items()},
+           "drift_error_px": drift_err, "drift_tol_px": 0.3,
+           "statistics": stats, "model_error_px": model_err,
+           "model_error_tol_px": 0.5, "launches": launches,
+           "points_per_view": {tp: [len(p) for p in r.points]
+                               for tp, r in res.per_timepoint.items()}}
+    emit({"phase": "timelapse_series", **out})
+    bad_stats = [tp for tp, st in stats.items() if tp != ref
+                 and not (st["valid"] and st["mean_error_px"] < 0.5)]
+    if max(drift_err.values()) > 0.3 or bad_stats:
+        raise AssertionError(f"timelapse stabilization: drift errors "
+                             f"{drift_err}, statistics {stats}")
+    if max(model_err.values()) >= 0.5:
+        raise AssertionError(f"timelapse models: {model_err} px >= 0.5")
+    if launches["segtopk"] != TL_TPS * N_VIEWS:
+        raise AssertionError(f"register_timeseries launched segtopk "
+                             f"{launches['segtopk']} times, expected "
+                             f"{TL_TPS * N_VIEWS}")
+    return out
+
+
+def stress_scene(cfg: dict):
+    """examples/timelapse_stress.py's acquisition (BASELINE config #5) on
+    the port's simulation: a bead cloud over the tiled world (seed 42),
+    drifted per timepoint by a random walk (sigma 1.2 px) drawn for the
+    published number of timepoints (so the first ones are the published
+    run's), each view a rotation about its tile's centre moved to the
+    tile, perturbed by up to 1.5 px. Returns the geometry and a renderer
+    that draws each view's noise from the shared generator in the
+    example's order (timepoint, tile, view)."""
+    from spim_registration_tpu_torch.utils.simulation import (
+        render_beads,
+        rotation_about_axis,
+    )
+
+    G, V, E = cfg["tiles"], cfg["views"], cfg["tile_size"]
+    step = E * (1.0 - cfg["overlap"])
+    tiles = [(a, b, c) for a in range(G[0]) for b in range(G[1])
+             for c in range(G[2])]
+    world_dims = tuple(int(step * (g - 1) + E) for g in G)
+    rng = np.random.default_rng(42)
+    world0 = rng.uniform(8, np.asarray(world_dims, float) - 8,
+                         (cfg["beads_per_tile"] * len(tiles), 3))
+    drifts = np.cumsum(np.vstack([np.zeros(3), rng.normal(
+        0, 1.2, (cfg["published_tps"] - 1, 3))]), axis=0)[:cfg["tps"]]
+
+    def nominal_model(tile, v):
+        R = rotation_about_axis(1, 360.0 / V * v)
+        c = np.full(3, E / 2.0)
+        A = np.concatenate([R, (c - R @ c)[:, None]], axis=1)
+        A[:, 3] += np.array(tiles[tile]) * step
+        return A
+
+    perturb = {(t, v): np.zeros(3) if v == 0 else rng.uniform(-1.5, 1.5, 3)
+               for t in range(len(tiles)) for v in range(V)}
+
+    def true_model(tile, v):
+        A = nominal_model(tile, v)
+        A[:, 3] += perturb[(tile, v)]
+        return A
+
+    def render_view(tp, tile, v):
+        A4 = np.vstack([true_model(tile, v), [0, 0, 0, 1]])
+        inv = np.linalg.inv(A4)[:3]
+        pts = (world0 + drifts[tp]) @ inv[:, :3].T + inv[:, 3]
+        vol = render_beads(pts, (E, E, E), 1.7)
+        return (vol + rng.normal(0, 0.003, vol.shape)).astype(np.float32)
+
+    return {"tiles": tiles, "world_dims": world_dims, "drifts": drifts,
+            "nominal_model": nominal_model, "render_view": render_view}
+
+
+def timelapse_stress(tmp: str) -> tuple:
+    """examples/timelapse_stress.py's production path on the port's
+    modules at BASELINE config #5's per-timepoint width (STRESS: 2 x 2 x 2
+    tiles x 6 views of 96^3, 120 beads a tile, 25% overlap, world 168^3),
+    its timepoints cut for the time limit. A: `.npy` views and the master
+    XML; B: a `run_job` a timepoint (`detect_beads`, then `register_views`
+    a tile on points from the nominal models) and `merge_cluster_jobs`;
+    C: each timepoint's pool (one view a tile, `_dedupe` at 1.5 px)
+    matched against the reference timepoint's (RGLDM, translation, seed
+    99 + tp); D: `fuse_views_streaming` a timepoint into the world box.
+    Checks: stabilization residuals < 0.5 px; one tile of timepoint 0 on
+    the card against the CPU (peak sets equal, models within 1e-4); the
+    reference timepoint's streamed fusion against `fuse_views`
+    (nrmse <= CLI_OOC_FUSE_TOL); segtopk launches = views x timepoints
+    where `find_peaks` extracts by segments, else 0: a 96^3 field has
+    1728 segments of 512, and the default `max_peaks` (8192) is more than
+    4 rounds of them keep, so the port, like the reference
+    (ops/extrema.py `_segmented_compact_topk`), sorts the whole field.
+    Returns the phase line and the segtopk launches of stage B."""
+    from spim_registration_tpu_torch.core.dataset import (
+        BoundingBox,
+        Dataset,
+        ViewDescription,
+        ViewTransform,
+    )
+    from spim_registration_tpu_torch.core.imgloaders import npy_loader
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+    from spim_registration_tpu_torch.detect import DoGParameters, detect_beads
+    from spim_registration_tpu_torch.fuse import FusionParameters, fuse_views
+    from spim_registration_tpu_torch.fuse.streaming import (
+        fuse_views_streaming,
+    )
+    from spim_registration_tpu_torch.match import (
+        PairwiseParameters,
+        match_pair,
+    )
+    from spim_registration_tpu_torch.native_blocks import RawVolumeStore
+    from spim_registration_tpu_torch.pipeline import (
+        RegistrationConfig,
+        register_views,
+    )
+    from spim_registration_tpu_torch.pipeline.cluster import (
+        find_job_xmls,
+        merge_cluster_jobs,
+        run_job,
+    )
+    from spim_registration_tpu_torch.pipeline.timelapse import _dedupe
+
+    cfg = STRESS
+    T, V, E = cfg["tps"], cfg["views"], cfg["tile_size"]
+    ref_tp = T // 2
+    sc = stress_scene(cfg)
+    tiles, world_dims, drifts = sc["tiles"], sc["world_dims"], sc["drifts"]
+    n_views = len(tiles) * V
+    walls = {}
+
+    # ---- A: the views as .npy and the master XML
+    t0 = time.perf_counter()
+    ds = Dataset(base_path=tmp)
+    for tp in range(T):
+        for ti in range(len(tiles)):
+            for v in range(V):
+                setup = ti * V + v
+                np.save(os.path.join(tmp, f"tp{tp}_setup{setup}.npy"),
+                        sc["render_view"](tp, ti, v))
+                vd = ViewDescription(view_id=(tp, setup), tile=ti,
+                                     angle=int(360 / V * v), size=(E, E, E))
+                vd.transforms = [ViewTransform(
+                    "nominal", sc["nominal_model"](ti, v))]
+                ds.add_view(vd)
+    master = os.path.join(tmp, "dataset.xml")
+    save_dataset(ds, master)
+    walls["A_define_s"] = time.perf_counter() - t0
+
+    # ---- B: a cluster job a timepoint, then the merge
+    dparams = DoGParameters(sigma=1.8, threshold=0.008)
+    reg_cfg = RegistrationConfig(detection=dparams,
+                                 pairwise=PairwiseParameters(
+                                     model="affine", max_points=512))
+    spent = {"detect_s": 0.0, "register_s": 0.0, "match_s": 0.0,
+             "solve_s": 0.0}
+    n_points = []
+
+    def process_tp(job_ds, tp):
+        job_ds.loader = npy_loader(tmp)
+        for ti in range(len(tiles)):
+            setups = [ti * V + v for v in range(V)]
+            vols = [job_ds.get_image((tp, s)) for s in setups]
+            points = []
+            t1 = time.perf_counter()
+            for s, vol in zip(setups, vols):
+                pts, resp = detect_beads(vol, dparams)
+                job_ds.set_interest_points((tp, s), "beads", pts, resp)
+                points.append(pts)
+                n_points.append(len(pts))
+            t2 = time.perf_counter()
+            res = register_views(None, reg_cfg, points=points,
+                                 initial_models=[sc["nominal_model"](ti, v)
+                                                 for v in range(V)])
+            spent["detect_s"] += t2 - t1
+            spent["register_s"] += time.perf_counter() - t2
+            spent["match_s"] += res.timings["match"]
+            spent["solve_s"] += res.timings.get("solve", 0.0)
+            for s, model in zip(setups, res.models):
+                job_ds.views[(tp, s)].transforms = [
+                    ViewTransform("registered", model)]
+
+    k = min(dparams.max_peaks, E ** 3)
+    segments = -(-E ** 3 // SEG)
+    by_segments = k <= ROUNDS * segments
+    expected = n_views * T if by_segments else 0
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tp in range(T):
+        run_job(master, tp, process_tp)
+    walls["B_jobs_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    per_view_ms = 1e3 * spent["detect_s"] / (n_views * T)
+    regs_per_s = len(tiles) * T / spent["register_s"]
+    reg_split_s = {k: spent[k] for k in ("match_s", "solve_s")}
+    points_per_view = [int(np.min(n_points)), int(np.median(n_points)),
+                       int(np.max(n_points))]
+    t0 = time.perf_counter()
+    merged = merge_cluster_jobs(master, find_job_xmls(tmp))
+    merged.loader = npy_loader(tmp)
+    walls["B_merge_s"] = time.perf_counter() - t0
+
+    # ---- C: stabilization against the reference timepoint
+    t0 = time.perf_counter()
+    pools = {}
+    for tp in range(T):
+        parts = []
+        for (vtp, s), vd in merged.views.items():
+            # one view a tile: all 48 would put ~48 copies of every bead
+            # in the pool (examples/timelapse_stress.py)
+            if vtp != tp or s % V != 0:
+                continue
+            A = vd.model()
+            parts.append(vd.interest_points["beads"].points @ A[:, :3].T
+                         + A[:, 3])
+        pools[tp] = _dedupe(np.concatenate(parts), min_distance=1.5)
+    stab_params = PairwiseParameters(
+        method="rgldm", ratio_of_distance=3.0, model="translation",
+        max_points=min(1024, max(len(p) for p in pools.values())))
+    stab = {}
+    for tp in range(T):
+        if tp == ref_tp:
+            continue
+        res = match_pair(pools[tp], pools[ref_tp], stab_params,
+                         seed=99 + tp)
+        stab[tp] = {"valid": res.valid, "inliers": res.num_inliers,
+                    "residual_px": res.mean_error,
+                    # recovered drift ~ -(drift_tp - drift_ref)
+                    "drift_error_px": float(np.linalg.norm(
+                        res.model[:, 3] - (drifts[ref_tp] - drifts[tp])))}
+        if not res.valid:
+            continue
+        S4 = np.vstack([res.model, [0, 0, 0, 1]])
+        for (vtp, s), vd in merged.views.items():
+            if vtp == tp:
+                A4 = np.vstack([vd.model(), [0, 0, 0, 1]])
+                vd.transforms = [ViewTransform("stabilized", (S4 @ A4)[:3])]
+    save_dataset(merged, master)
+    walls["C_stabilize_s"] = time.perf_counter() - t0
+
+    # ---- D: streaming fusion a timepoint, disk to disk
+    bbox = BoundingBox("world", (0, 0, 0), world_dims)
+    fparams = FusionParameters(z_chunk=32)
+    block = (32, 128, 128)
+    fused_tps = cfg["fused_tps"]
+
+    def fuse_tp(tp, box, name):
+        setups = sorted(s for (vtp, s) in merged.views if vtp == tp)
+        stores, models = [], []
+        for s in setups:
+            vol = merged.get_image((tp, s))
+            st = RawVolumeStore(os.path.join(tmp, f"view_tp{tp}_{s}.raw"),
+                                vol.shape, create=True)
+            st.write_block((0, 0, 0), vol)
+            stores.append(st)
+            models.append(merged.views[(tp, s)].model())
+        out = RawVolumeStore(os.path.join(tmp, name), box.shape,
+                             create=True)
+        fuse_views_streaming(stores, models, box, out, fparams, block=block)
+        for s in setups:
+            os.unlink(os.path.join(tmp, f"view_tp{tp}_{s}.raw"))
+
+    fuse_walls = {}
+    t0 = time.perf_counter()
+    for tp in fused_tps:
+        fuse_walls[tp] = sync_wall(
+            lambda: fuse_tp(tp, bbox, f"fused_tp{tp}.raw"))[1]
+    walls["D_fuse_s"] = time.perf_counter() - t0
+    # the idle share of stage D over the reference timepoint's first row of
+    # blocks (a whole timepoint's trace takes the profiler ~30 s to read)
+    slab = BoundingBox("slab", (0, 0, 0), (block[0],) + world_dims[1:])
+    fuse_prof = device_profile(
+        lambda: fuse_tp(ref_tp, slab, "slab.raw"), top=8)
+    setups = sorted(s for (vtp, s) in merged.views if vtp == ref_tp)
+    streamed = RawVolumeStore(os.path.join(tmp, f"fused_tp{ref_tp}.raw"),
+                              bbox.shape).read_block((0, 0, 0), bbox.shape)
+    in_memory = fuse_views([merged.get_image((ref_tp, s)) for s in setups],
+                           [merged.views[(ref_tp, s)].model()
+                            for s in setups], bbox, fparams)
+    fuse_err = nrmse(in_memory, streamed)
+
+    # ---- the card against the CPU on tile 0 of timepoint 0
+    vols = [merged.get_image((0, s)) for s in range(V)]
+    det = {dev: [detect_beads(v, dparams, device=dev)[0] for v in vols]
+           for dev in ("cuda", "cpu")}
+    same_peaks = all(
+        a.shape == b.shape and np.array_equal(np.round(a), np.round(b))
+        for a, b in zip(det["cuda"], det["cpu"]))
+    nominals = [sc["nominal_model"](0, v) for v in range(V)]
+    regs = {dev: register_views(None, reg_cfg, points=det["cpu"],
+                                initial_models=nominals, device=dev)
+            for dev in ("cuda", "cpu")}
+    model_diff = max(float(np.abs(a - b).max()) for a, b in
+                     zip(regs["cuda"].models, regs["cpu"].models))
+    pos_diff = max(float(np.abs(a - b).max()) for a, b in
+                   zip(det["cuda"], det["cpu"])) if same_peaks else None
+
+    # ---- the device's idle share over one timepoint's stage B
+    prof = device_profile(lambda: run_job(
+        master, ref_tp, process_tp,
+        out_xml=os.path.join(tmp, "profiled_job.xml")), top=8)
+
+    out = {
+        "config": {k: cfg[k] for k in ("tiles", "views", "tile_size",
+                                       "beads_per_tile", "overlap")},
+        "world_dims": list(world_dims), "timepoints": T,
+        "reference_tp": ref_tp, "views_per_tp": n_views,
+        "reduced": cfg["reduced"], "walls_s": walls,
+        "detect_ms_per_view": per_view_ms,
+        "registrations_per_s": regs_per_s,
+        "registration_split_s": reg_split_s,
+        "points_per_view_min_median_max": points_per_view,
+        "stabilization": stab,
+        "max_residual_px": max(v["residual_px"] for v in stab.values()),
+        "residual_tol_px": 0.5,
+        "fused_tps": list(fused_tps), "fuse_walls_s": fuse_walls,
+        "stage_d_profile_first_block_row": fuse_prof,
+        "fusion_streamed_vs_in_memory_nrmse": fuse_err,
+        "fusion_tol": CLI_OOC_FUSE_TOL,
+        "tile_card_vs_cpu": {"same_peaks": same_peaks,
+                             "max_pos_diff_px": pos_diff,
+                             "max_model_diff": model_diff, "tol": 1e-4},
+        "launches": launches, "segtopk_expected": expected,
+        "peak_selection": (f"max_peaks {k} {'<=' if by_segments else '>'} "
+                           f"{ROUNDS} rounds x {segments} segments: "
+                           + ("segtopk" if by_segments
+                              else "a sort of the whole field")),
+        "stage_b_profile": prof}
+    emit({"phase": "timelapse", **out})
+    if not all(v["valid"] for v in stab.values()) \
+            or out["max_residual_px"] >= 0.5:
+        raise AssertionError(f"timelapse stabilization: {stab}")
+    if not same_peaks or model_diff > 1e-4:
+        raise AssertionError(f"timelapse tile on the card vs the CPU: "
+                             f"{out['tile_card_vs_cpu']}")
+    if not (fuse_err <= CLI_OOC_FUSE_TOL and np.all(np.isfinite(streamed))):
+        raise AssertionError(f"timelapse streamed fusion vs in-memory: "
+                             f"nrmse {fuse_err}")
+    if launches["segtopk"] != expected:
+        raise AssertionError(f"timelapse stage B launched segtopk "
+                             f"{launches['segtopk']} times, expected "
+                             f"{expected}")
+    return out, launches["segtopk"]
+
+
+def phase_timelapse() -> dict:
+    """The timelapse and cluster path: `register_timeseries` at the
+    pipeline's width (`timelapse_series`), then the production path of
+    BASELINE config #5 (`timelapse_stress`) in a temporary directory of
+    the checkout. Returns segtopk's launches in each."""
+    import tempfile
+
+    series = timelapse_series()["launches"]["segtopk"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix="_timelapse_smoke_") as d:
+        _, stress = timelapse_stress(d)
+    return {"series": series, "config5": stress}
 
 
 def phase_small_vs_cpu() -> None:
@@ -1917,6 +2404,7 @@ def main() -> int:
     del vol
     timed("match", phase_match)
     timed("pipeline", phase_pipeline)
+    launches_timelapse = timed("timelapse", phase_timelapse)
     timed("small_vs_cpu", phase_small_vs_cpu)
     ooc, ooc_errs = timed("ooc", phase_ooc, psfs, factors)
     for name in ("zpass", "sl_rows"):
@@ -1927,6 +2415,9 @@ def main() -> int:
           "total_s": time.perf_counter() - t_start})
     for name in ("zpass", "sl_rows", "segtopk"):
         kernels[name]["launches"] = counts[name]
+    kernels["segtopk"]["launches_timelapse"] = launches_timelapse["series"]
+    kernels["segtopk"]["launches_timelapse_config5"] = \
+        launches_timelapse["config5"]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
                                            "dog", "zfused")]})
     print(smi, flush=True)

@@ -15,14 +15,18 @@ XML is the checkpoint).
     python -m spim_registration_tpu_torch.cli tune       ds/dataset.xml
     python -m spim_registration_tpu_torch.cli icp-refine ds/dataset.xml
 
+    python -m spim_registration_tpu_torch.cli cluster-job   ds/dataset.xml --tp 0
+    python -m spim_registration_tpu_torch.cli cluster-merge ds/dataset.xml
+
 `fuse` and `deconvolve` take `--out-of-core` (streaming fusion, blocked
 deconvolution over disk stores in `--ooc-workdir`; `deconvolve` also
 `--block-z`). The compute verbs run on the CUDA card; `--device cpu` runs
 them on the host (the counterpart of the reference's JAX_PLATFORMS).
+`cluster-job` detects and registers one timepoint into `job_tp<N>.xml`;
+`cluster-merge` (host only) folds the job XMLs back into the master.
 Verbs and options the port does not have yet (`define`, `resave`,
-`cluster-*`, `--mesh`, `--multihost`, `--profile`, `--append-hdf5`,
-zarr/n5 export) exit with code 2 and say so; nothing falls back to
-another path.
+`--mesh`, `--multihost`, `--profile`, `--append-hdf5`, zarr/n5 export)
+exit with code 2 and say so; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Dict
 import numpy as np
 
 # verbs of the reference CLI that the port does not have yet
-NOT_PORTED = ("define", "resave", "cluster-job", "cluster-merge")
+NOT_PORTED = ("define", "resave")
 
 
 def _dataset_with_loader(xml_path: str):
@@ -455,6 +459,56 @@ def cmd_icp_refine(args):
     return 0
 
 
+def cmd_cluster_job(args):
+    """One per-timepoint cluster job: detect + register that timepoint,
+    write job_tp<N>.xml (Toggle_Cluster_Options / per-job XML analog)."""
+    from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
+    from spim_registration_tpu_torch.pipeline.cluster import run_job
+    from spim_registration_tpu_torch.pipeline.run import (
+        RegistrationConfig,
+        register_views,
+    )
+
+    cfg = _load_config(args)
+    stages = args.stages.split(",")
+
+    def process(ds, tp):
+        ds.loader = _dataset_with_loader(args.xml).loader
+        vids = [v.view_id for v in ds.views_of_timepoint(tp)]
+        if "detect" in stages:
+            detect_beads_dataset(ds, view_ids=vids, label=cfg.label,
+                                 params=cfg.detection, device=args.device)
+        if "register" in stages:
+            views = ds.views_of_timepoint(tp)
+            pts = [np.asarray(v.interest_points[cfg.label].points)
+                   for v in views]
+            rc = RegistrationConfig(detection=cfg.detection,
+                                    pairwise=cfg.pairwise,
+                                    global_opt=cfg.global_opt)
+            res = register_views(None, rc, points=pts, device=args.device)
+            for v, vd in enumerate(views):
+                vd.set_transform("registration", res.models[v])
+            print(f"tp {tp}: residual mean={res.mean_error:.4f} px")
+
+    out = run_job(args.xml, args.tp, process, out_xml=args.out)
+    print(f"job tp={args.tp} -> {out}")
+
+
+def cmd_cluster_merge(args):
+    from spim_registration_tpu_torch.pipeline.cluster import (
+        find_job_xmls,
+        merge_cluster_jobs,
+    )
+
+    jobs = args.jobs or find_job_xmls(os.path.dirname(
+        os.path.abspath(args.xml)))
+    if not jobs:
+        print("no job XMLs found", file=sys.stderr)
+        return 1
+    merge_cluster_jobs(args.xml, jobs, out_xml=args.out)
+    print(f"merged {len(jobs)} jobs into {args.out or args.xml}")
+
+
 def cmd_info(args):
     from spim_registration_tpu_torch.core.xml_io import load_dataset
 
@@ -562,6 +616,22 @@ def build_parser() -> argparse.ArgumentParser:
                                  "auto)")
         common(sp)
         sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("cluster-job",
+                        help="run one per-timepoint job (detect+register)")
+    sp.add_argument("xml")
+    sp.add_argument("--tp", type=int, required=True)
+    sp.add_argument("--stages", default="detect,register")
+    sp.add_argument("--out", help="job XML path (default job_tp<N>.xml)")
+    common(sp)
+    sp.set_defaults(fn=cmd_cluster_job)
+
+    sp = sub.add_parser("cluster-merge",
+                        help="fold job XMLs back into the master XML")
+    sp.add_argument("xml")
+    sp.add_argument("jobs", nargs="*")
+    sp.add_argument("--out")
+    sp.set_defaults(fn=cmd_cluster_merge)
 
     sp = sub.add_parser("info")
     sp.add_argument("xml")

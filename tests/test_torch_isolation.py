@@ -72,6 +72,9 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         match_pairs_batched,
     )
     from spim_registration_tpu_torch.pipeline import register_views
+    from spim_registration_tpu_torch.pipeline.timelapse import (
+        register_timeseries,
+    )
     from spim_registration_tpu_torch.solve import (
         GlobalOptParameters,
         PairMatches,
@@ -103,6 +106,7 @@ def test_entry_points_refuse_to_run_without_cuda(monkeypatch):
         lambda: solve_global(pm, [0], GlobalOptParameters(
             device_assembly=True)),
         lambda: register_views([vol, vol]),
+        lambda: register_timeseries({0: [vol, vol]}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -118,7 +122,8 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "deconv.blocked", "deconv.prep_streamed", "fuse.streaming",
                 "match.centerofmass", "match.icp", "ops.phase_correlation",
                 "pipeline.phase_init", "detect.tune",
-                "solve.optimization_types")
+                "solve.optimization_types", "pipeline.tools",
+                "pipeline.timelapse", "pipeline.cluster")
 
 _IMPORT_NEW = r"""
 import importlib, sys
@@ -161,6 +166,7 @@ def test_cli_path_entry_points_refuse_to_run_without_cuda(monkeypatch,
     )
     from spim_registration_tpu_torch.fuse import fuse_dataset
     from spim_registration_tpu_torch.ops.resample import resample_affine_auto
+    from spim_registration_tpu_torch.pipeline.tools import display_view
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     vol = np.ones((8, 8, 8), np.float32)
@@ -173,7 +179,11 @@ def test_cli_path_entry_points_refuse_to_run_without_cuda(monkeypatch,
                  lambda: detect_beads_dom(vol),
                  lambda: fuse_dataset(ds, [(0, 0)]),
                  lambda: resample_affine_auto(vol, np.eye(3, 4), (4, 4, 4)),
-                 lambda: cli.main(["detect", str(tmp_path / "dataset.xml")])):
+                 lambda: display_view(ds, (0, 0)),
+                 lambda: cli.main(["detect", str(tmp_path / "dataset.xml")]),
+                 lambda: cli.main(["cluster-job",
+                                   str(tmp_path / "dataset.xml"), "--tp",
+                                   "0"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
