@@ -79,7 +79,19 @@ package) and exits nonzero on any failure:
    reference timepoint, streaming fusion; stage walls, ms a detected
    view, registrations/s, the device's idle share over one timepoint's
    jobs and over a row of fusion blocks, one tile on the card against
-   the CPU and the streamed fusion against the in-memory one.
+   the CPU and the streamed fusion against the in-memory one;
+12. the rest of the CLI (`phase_formats`) on the CLI phase's scene: the
+   views as a float32 CZI -> `define --format czi` (bit for bit) and
+   `define` of the `.npy` copies -> `resave --format zarr` and `n5` (4
+   levels, each equal bit for bit to the CPU's pyramid, f32 and uint16)
+   -> `detect` / `register` on the zarr dataset against the `.npy` copies
+   (points exactly, models within CLI_CLUSTER_TOL, segtopk launches) ->
+   `detect --profile` (the trace names the segtopk kernel) -> `fuse
+   --out` `.npy` / `.zarr` / `.n5` (equal bit for bit) -> `deconvolve
+   --out psi.n5` (zpass and sl_rows launches) -> `run_checkpointed` into
+   a `ZarrCheckpointer`; the verbs that need `h5py` or `imageio` run
+   where they are installed and otherwise must exit 2 naming the package;
+   walls per verb and MB/s of the container writes and reads.
 
 Each phase prints one JSON line, and a `walls` line gives every phase's
 wall; then a `kernels` JSON line, the nvidia-smi line, and last
@@ -141,6 +153,8 @@ CLI_CLUSTER_TOL = 1e-4
 # width, and BASELINE config #5 (examples/timelapse_stress.py) at its
 # per-timepoint width with its timepoints cut for the time limit
 TL_TPS = 3
+# the formats phase's `resave --levels`: 256^3 takes all 4 (down to 32^3)
+FMT_LEVELS = 4
 STRESS = {"tiles": (2, 2, 2), "views": 6, "tile_size": 96,
           "beads_per_tile": 120, "overlap": 0.25, "published_tps": 20,
           "tps": 4, "fused_tps": (0, 2),
@@ -1428,6 +1442,309 @@ def phase_cli() -> None:
         raise AssertionError(f"icp-refine: {icp_names}, {ooc['icp']}")
 
 
+def _fmt_placeholders(d: str) -> dict:
+    """Inputs for the verbs that need `imageio`: TIFF stacks and
+    MicroManager stacks, written with imageio where it is installed, and
+    otherwise as empty files of the right names (the verbs must refuse
+    them before reading a byte)."""
+    import importlib.util
+
+    have = importlib.util.find_spec("imageio") is not None
+    tif, mm = os.path.join(d, "tiff"), os.path.join(d, "mm")
+    os.makedirs(tif)
+    os.makedirs(mm)
+    rng = np.random.default_rng(13)
+    pages = rng.integers(0, 4000, (2 * 4, 10, 12)).astype(np.uint16)
+    for path, arr in ((os.path.join(tif, f"tp0_setup{s}.tif"),
+                       pages[:4]) for s in range(2)):
+        if have:
+            import imageio.v3 as iio
+
+            iio.imwrite(path, arr)
+        else:
+            open(path, "wb").close()
+    path = os.path.join(mm, "acq_MMStack_Pos0.ome.tif")
+    if have:
+        import imageio.v3 as iio
+
+        iio.imwrite(path, pages)
+    else:
+        open(path, "wb").close()
+    with open(os.path.join(mm, "metadata.txt"), "w") as f:
+        json.dump({"Summary": {"Frames": 1, "Slices": 4, "Channels": 2,
+                               "Positions": 1, "SlicesFirst": False}}, f)
+    return {"tiff": tif, "mm": mm}
+
+
+def phase_formats() -> dict:
+    """The rest of the CLI on the CLI phase's scene (4 x 256^3, 300
+    beads, the per-view blur, seed 11, `simulate` into `.npy` views), each
+    verb through `cli.main` in-process in a temporary directory of the
+    checkout: the views written as a float32 CZI (`write_czi`) ->
+    `define --format czi` (every view read through the CZI loader equal
+    to the `.npy` bit for bit) and `define` of the `.npy` pattern ->
+    `resave --format zarr` and `--format n5` (4 levels, (16, 64, 64)
+    chunks; every level of both equal bit for bit to the port's
+    `_pyramid` run on the CPU on the same view, f32 and the n5's uint16)
+    -> `detect` and `register` on the zarr dataset against the same verbs
+    on the `.npy` copies (points exactly, models within CLI_CLUSTER_TOL;
+    segtopk launches) -> `detect --profile` (the trace names the segtopk
+    kernel) -> `fuse --out` `.npy`, `.zarr`, `.n5` (read-backs equal the
+    `.npy` bit for bit) -> `deconvolve --out psi.n5` (lowrank; zpass and
+    sl_rows launches) -> `run_checkpointed(5, ZarrCheckpointer.save)`
+    over 10 iterations (`load_latest` gives (10, psi) bit for bit). Last,
+    the verbs that need `h5py` or `imageio` (`resave --format hdf5`,
+    `fuse --append-hdf5`, `define` of TIFF stacks and of MicroManager
+    stacks) run where the package is installed and otherwise must exit 2
+    naming it. Walls per verb, MB/s of the container writes and reads."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core import zarr_store
+    from spim_registration_tpu_torch.core.czi import write_czi
+    from spim_registration_tpu_torch.core.xml_io import load_dataset
+    from spim_registration_tpu_torch.deconv import (
+        DeconvolutionRunner,
+        extract_psf,
+        prepare_views_for_deconvolution,
+    )
+    from spim_registration_tpu_torch.fuse.bounding_box import (
+        maximal_bounding_box,
+    )
+    from spim_registration_tpu_torch.pipeline.config import (
+        RunConfig,
+        apply_overrides,
+    )
+
+    walls, launches, logs, rates = {}, {}, {}, {}
+    checks = {}
+
+    def run(name, argv, want_rc=0):
+        out, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = read_launches()
+        logs[name] = (out.getvalue().strip().splitlines()[-4:]
+                      + err.getvalue().strip().splitlines()[-2:])
+        if rc != want_rc:
+            raise AssertionError(f"formats: {name} exited {rc}, not "
+                                 f"{want_rc}: {logs[name]}")
+        return err.getvalue()
+
+    def timed_io(name, n_bytes, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        rates[name] = {"mb": n_bytes / 1e6,
+                       "s": time.perf_counter() - t0}
+        rates[name]["mb_per_s"] = rates[name]["mb"] / rates[name]["s"]
+        return out
+
+    lowrank = ["--set", "deconvolution.conv_backend=lowrank",
+               "--set", "deconvolution.num_iterations=10",
+               "--set", "deconvolution.psf_rank_tol=0.01"]
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_formats_smoke_") as d:
+        npy_dir, czi_dir = (os.path.join(d, n) for n in ("npy", "czi"))
+        npy_xml, czi_xml = (os.path.join(p, "dataset.xml")
+                            for p in (npy_dir, czi_dir))
+        run("simulate", ["simulate", "--out", npy_dir, "--views",
+                         str(N_VIEWS), "--shape", *map(str, SHAPE),
+                         "--beads", "300", "--blur", "--seed", "11"])
+        vols = [np.load(os.path.join(npy_dir, f"tp0_setup{s}.npy"))
+                for s in range(N_VIEWS)]
+        view_mb = sum(v.nbytes for v in vols)
+        os.makedirs(czi_dir)
+        timed_io("write_czi", view_mb, lambda: write_czi(
+            os.path.join(czi_dir, "acq.czi"),
+            {(0, s, 0, 0): v for s, v in enumerate(vols)}))
+        run("define_czi", ["define", czi_dir, "--format", "czi"])
+        run("define_pattern", ["define", npy_dir])
+        ds = cli._dataset_with_loader(czi_xml)
+        got = timed_io("read_czi", view_mb, lambda: [
+            ds.get_image((0, s)) for s in range(N_VIEWS)])
+        checks["czi_equal"] = all(g.dtype == np.float32
+                                  and np.array_equal(g, v)
+                                  for g, v in zip(got, vols))
+        del got
+        zarr_p, n5_p = (os.path.join(czi_dir, f"data.{x}")
+                        for x in ("zarr", "n5"))
+        run("resave_zarr", ["resave", czi_xml, "--format", "zarr",
+                            "--levels", str(FMT_LEVELS)])
+        run("resave_n5", ["resave", czi_xml, "--format", "n5", "--levels",
+                          str(FMT_LEVELS), "--out", n5_p])
+        # every level against the CPU's pyramid of the same view; the n5
+        # one of the view scaled into uint16 as `resave_n5_bdv` scales it
+        levels = zarr_store._mipmap_levels(SHAPE, FMT_LEVELS)
+        scale = 65535.0 / (max(float(v.max()) for v in vols) or 1.0)
+        pyr_equal, level_mb = {"zarr": [], "n5": []}, {"zarr": 0, "n5": 0}
+        read_s = {"zarr": 0.0, "n5": 0.0}
+        for s, v in enumerate(vols):
+            u16 = np.clip(v * scale, 0, 65535)
+            for (li, _f, want), (_l, _g, want16) in zip(
+                    zarr_store._pyramid(v, levels, np.float32, "cpu"),
+                    zarr_store._pyramid(u16, levels, np.uint16, "cpu")):
+                t0 = time.perf_counter()
+                a = zarr_store.zarr_loader(zarr_p, li)((0, s))
+                read_s["zarr"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                b = zarr_store.open_volume(os.path.join(
+                    n5_p, f"setup{s}", "timepoint0", f"s{li}"), "n5").read()
+                read_s["n5"] += time.perf_counter() - t0
+                pyr_equal["zarr"].append(a.dtype == want.dtype
+                                         and np.array_equal(a, want))
+                pyr_equal["n5"].append(b.dtype == np.uint16
+                                       and np.array_equal(b.T, want16))
+                level_mb["zarr"] += a.nbytes / 1e6
+                level_mb["n5"] += b.nbytes / 1e6
+        for k in ("zarr", "n5"):
+            rates[f"resave_{k}_write"] = {
+                "mb": level_mb[k], "s": walls[f"resave_{k}"],
+                "mb_per_s": level_mb[k] / walls[f"resave_{k}"],
+                "note": "the verb's wall: the reads, pyramids and writes"}
+            rates[f"read_{k}_levels"] = {
+                "mb": level_mb[k], "s": read_s[k],
+                "mb_per_s": level_mb[k] / read_s[k]}
+        checks["levels"] = len(levels)
+        checks["pyramid_equal"] = pyr_equal
+        del vols
+        # the `.npy` copies first, so neither pair's walls hold the first
+        # detection's and registration's start-up
+        run("detect_npy", ["detect", npy_xml])
+        run("register_npy", ["register", npy_xml])
+        run("detect", ["detect", czi_xml])
+        run("register", ["register", czi_xml])
+        a_ds, b_ds = load_dataset(czi_xml), load_dataset(npy_xml)
+        checks["points_equal_npy"] = []
+        checks["model_diff_npy"] = []
+        for vid, b in sorted(b_ds.views.items()):
+            pa = a_ds.views[vid].interest_points["beads"]
+            pb = b.interest_points["beads"]
+            checks["points_equal_npy"].append(bool(
+                np.array_equal(pa.points, pb.points)
+                and np.array_equal(pa.intensities, pb.intensities)))
+            checks["model_diff_npy"].append(float(np.abs(
+                a_ds.views[vid].model() - b.model()).max()))
+        prof = os.path.join(d, "profile")
+        run("detect_profile", ["detect", czi_xml, "--profile", prof])
+        traces = os.listdir(prof)
+        checks["trace_files"] = traces
+        checks["trace_names_segtopk"] = any(
+            "seg_topk_kernel" in open(os.path.join(prof, t)).read()
+            for t in traces)
+        outs = {x: os.path.join(d, f"fused.{x}") for x in ("npy", "zarr",
+                                                           "n5")}
+        for x, p in outs.items():
+            run(f"fuse_{x}", ["fuse", czi_xml, "--out", p])
+        fused = np.load(outs["npy"])
+        back = {"zarr": zarr_store.open_volume(outs["zarr"]).read(),
+                "n5": zarr_store.open_volume(outs["n5"], "n5").read()}
+        checks["fused_shape"] = list(fused.shape)
+        checks["fuse_export_equal"] = {x: bool(np.array_equal(b, fused))
+                                       for x, b in back.items()}
+        checks["fuse_export_nrmse"] = {x: nrmse(fused, b)
+                                       for x, b in back.items()}
+        for x in ("zarr", "n5"):
+            p = os.path.join(d, f"direct.{x}")
+            timed_io(f"write_fused_{x}", fused.nbytes,
+                     lambda: zarr_store.create_volume(
+                         p, fused.shape, driver=x).write(fused))
+            timed_io(f"read_fused_{x}", fused.nbytes,
+                     lambda: zarr_store.open_volume(p, x).read())
+        del back
+        psi_p = os.path.join(d, "psi.n5")
+        run("deconvolve_n5", ["deconvolve", czi_xml, "--out", psi_p,
+                              *lowrank])
+        psi_n5 = zarr_store.open_volume(psi_p, "n5").read()
+        checks["psi_shape"] = list(psi_n5.shape)
+        checks["psi_finite"] = bool(np.all(np.isfinite(psi_n5)))
+        # the checkpointed engine on the deconvolve verb's inputs
+        ds = cli._dataset_with_loader(czi_xml)
+        views = ds.views_of_timepoint(0)
+        vols = [ds.get_image(v.view_id) for v in views]
+        models = [v.model() for v in views]
+        psfs = [extract_psf(vol, v.model(),
+                            v.interest_points["beads"].points)[0]
+                for v, vol in zip(views, vols)]
+        bbox = maximal_bounding_box([v.shape for v in vols], models)
+        cfg = apply_overrides(RunConfig(), {
+            "deconvolution.conv_backend": "lowrank",
+            "deconvolution.num_iterations": 10,
+            "deconvolution.psf_rank_tol": 0.01})
+        runner = DeconvolutionRunner(prepare_views_for_deconvolution(
+            vols, models, psfs, bbox), cfg.deconvolution)
+        del vols
+        ck = zarr_store.ZarrCheckpointer(os.path.join(d, "ckpt"))
+        reset_launches()
+        psi, walls["run_checkpointed"] = sync_wall(
+            lambda: runner.run_checkpointed(5, ck.save))
+        launches["run_checkpointed"] = read_launches()
+        it, restored = ck.load_latest()
+        checks["checkpoint"] = {"iteration": it, "equal": bool(
+            restored is not None
+            and np.array_equal(restored, psi.cpu().numpy()))}
+        del runner, psi
+        # the verbs that need h5py or imageio
+        fx = _fmt_placeholders(d)
+        have = {m: importlib.util.find_spec(m) is not None
+                for m in ("h5py", "imageio")}
+        optional = {
+            "resave_hdf5": ("h5py", ["resave", czi_xml, "--format", "hdf5",
+                                     "--out", os.path.join(d, "x.h5")]),
+            "fuse_append_hdf5": ("h5py", ["fuse", czi_xml, "--append-hdf5",
+                                          os.path.join(d, "x.h5")]),
+            "define_tiff": ("imageio", ["define", fx["tiff"], "--pattern",
+                                        "tp{tp}_setup{setup}.tif"]),
+            "define_micromanager": ("imageio", ["define", fx["mm"]]),
+        }
+        not_run = {}
+        for name, (pkg, argv) in optional.items():
+            err = run(name, argv, want_rc=0 if have[pkg] else 2)
+            if not have[pkg]:
+                if f"`{pkg}` package" not in err:
+                    raise AssertionError(f"formats: {name} without {pkg} "
+                                         f"did not name it: {err!r}")
+                not_run[name] = (f"`{pkg}` is not installed: exit 2, "
+                                 f"stderr names it")
+    emit({"phase": "formats", "views": N_VIEWS, "shape": list(SHAPE),
+          "not_run": not_run, "walls_s": walls, "io": rates,
+          "launches": launches, "checks": checks,
+          "cluster_model_tol": CLI_CLUSTER_TOL, "stdout_tail": logs})
+    bad = []
+    if not checks["czi_equal"]:
+        bad.append("czi views")
+    if not all(all(v) for v in pyr_equal.values()):
+        bad.append("pyramid levels")
+    if not (all(checks["points_equal_npy"])
+            and max(checks["model_diff_npy"]) <= CLI_CLUSTER_TOL):
+        bad.append("detect/register on zarr vs npy")
+    if launches["detect"]["segtopk"] == 0:
+        bad.append("detect launched no segtopk")
+    if not checks["trace_names_segtopk"]:
+        bad.append("profile trace")
+    if not all(checks["fuse_export_equal"].values()):
+        bad.append("zarr/n5 export of fuse")
+    if launches["deconvolve_n5"]["zpass"] == 0 \
+            or launches["deconvolve_n5"]["sl_rows"] == 0:
+        bad.append("deconvolve launched no zpass/sl_rows")
+    if not (checks["psi_finite"]
+            and checks["psi_shape"] == list(bbox.shape)):
+        bad.append("psi.n5")
+    if checks["checkpoint"] != {"iteration": 10, "equal": True}:
+        bad.append("checkpoint")
+    if bad:
+        raise AssertionError(f"formats: {bad}")
+    return {k: launches[v][k] for k, v in (("segtopk", "detect"),
+                                           ("zpass", "deconvolve_n5"),
+                                           ("sl_rows", "deconvolve_n5"))}
+
+
 def phase_rl(psfs, factors) -> tuple:
     """The main path at the bench configuration. Returns (kernel launch
     counts of one 20-iteration lowrank run, the staged lowrank runner)."""
@@ -2411,6 +2728,7 @@ def main() -> int:
         kernels[name]["launches_ooc"] = ooc[name]
         kernels[name]["max_abs_err_ooc_blocks"] = ooc_errs[name]
     timed("cli", phase_cli)
+    launches_formats = timed("formats", phase_formats)
     emit({"phase": "walls", "seconds": walls,
           "total_s": time.perf_counter() - t_start})
     for name in ("zpass", "sl_rows", "segtopk"):
@@ -2418,6 +2736,8 @@ def main() -> int:
     kernels["segtopk"]["launches_timelapse"] = launches_timelapse["series"]
     kernels["segtopk"]["launches_timelapse_config5"] = \
         launches_timelapse["config5"]
+    for name, n in launches_formats.items():
+        kernels[name]["launches_formats"] = n
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
                                            "dog", "zfused")]})
     print(smi, flush=True)

@@ -4,12 +4,14 @@ Port of the reference's `cli.py`: every pipeline stage is a subcommand on
 one dataset XML, loading it and saving it again around each stage (the
 XML is the checkpoint).
 
+    python -m spim_registration_tpu_torch.cli define     raw/
     python -m spim_registration_tpu_torch.cli simulate --out ds/ --views 4
     python -m spim_registration_tpu_torch.cli detect     ds/dataset.xml
     python -m spim_registration_tpu_torch.cli register   ds/dataset.xml
     python -m spim_registration_tpu_torch.cli define-bbox ds/dataset.xml roi --from-points beads
     python -m spim_registration_tpu_torch.cli fuse       ds/dataset.xml --out fused.npy
     python -m spim_registration_tpu_torch.cli deconvolve ds/dataset.xml --out psi.npy
+    python -m spim_registration_tpu_torch.cli resave ds/dataset.xml --format zarr
     python -m spim_registration_tpu_torch.cli info       ds/dataset.xml
 
     python -m spim_registration_tpu_torch.cli tune       ds/dataset.xml
@@ -18,15 +20,24 @@ XML is the checkpoint).
     python -m spim_registration_tpu_torch.cli cluster-job   ds/dataset.xml --tp 0
     python -m spim_registration_tpu_torch.cli cluster-merge ds/dataset.xml
 
-`fuse` and `deconvolve` take `--out-of-core` (streaming fusion, blocked
-deconvolution over disk stores in `--ooc-workdir`; `deconvolve` also
-`--block-z`). The compute verbs run on the CUDA card; `--device cpu` runs
-them on the host (the counterpart of the reference's JAX_PLATFORMS).
-`cluster-job` detects and registers one timepoint into `job_tp<N>.xml`;
-`cluster-merge` (host only) folds the job XMLs back into the master.
-Verbs and options the port does not have yet (`define`, `resave`,
-`--mesh`, `--multihost`, `--profile`, `--append-hdf5`, zarr/n5 export)
-exit with code 2 and say so; nothing falls back to another path.
+`define` writes the XML of raw files (a `{tp}`/`{setup}` or
+`{angle}/{channel}/{illum}/{tile}` pattern of `.npy` or TIFF, a CZI, a
+MicroManager or a DHM export); `resave` rewrites the views as HDF5, zarr
+or bdv.n5 pyramids, which later verbs then read. `fuse` and `deconvolve`
+write `.npy`, `.zarr`, `.n5` or TIFF, or append the volume as a new view
+setup of a BDV HDF5 (`--append-hdf5`); they take `--out-of-core`
+(streaming fusion, blocked deconvolution over disk stores in
+`--ooc-workdir`; `deconvolve` also `--block-z`). The compute verbs run on
+the CUDA card; `--device cpu` runs them on the host (the counterpart of
+the reference's JAX_PLATFORMS), and `--profile DIR` writes a
+`torch.profiler` trace of the verb into DIR. `cluster-job` detects and
+registers one timepoint into `job_tp<N>.xml`; `cluster-merge` (host only)
+folds the job XMLs back into the master.
+zarr, n5, CZI and `.npy` need nothing beyond numpy; TIFF, MicroManager and
+DHM images need `imageio`, HDF5 needs `h5py`: without them those verbs
+exit with code 2 and name the package. The reference's multi-device
+options `--mesh` and `--multihost` are not ported: argparse refuses them
+(exit code 2). Nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -40,13 +51,14 @@ from typing import Dict
 import numpy as np
 
 # verbs of the reference CLI that the port does not have yet
-NOT_PORTED = ("define", "resave")
+NOT_PORTED = ()
 
 
 def _dataset_with_loader(xml_path: str):
     """The dataset of `xml_path` with the loader its base directory's
-    files call for: BDV HDF5 (`data.h5`), `.npy` volumes or TIFF stacks.
-    Formats the port cannot read yet (zarr, n5, CZI, MicroManager) raise."""
+    files call for, in the reference's order: BDV HDF5 (`data.h5`), a
+    zarr tree (a directory with `meta.json`), a bdv.n5 container, a CZI,
+    MicroManager stacks, `.npy` volumes, else TIFF stacks."""
     from spim_registration_tpu_torch.core.imgloaders import (
         hdf5_loader,
         npy_loader,
@@ -58,15 +70,33 @@ def _dataset_with_loader(xml_path: str):
     base = ds.base_path
     files = sorted(os.listdir(base))
     h5 = os.path.join(base, "data.h5")
-    unported = [f for f in files
-                if os.path.exists(os.path.join(base, f, "meta.json"))
-                or (f.endswith(".n5") and os.path.isdir(os.path.join(base, f)))
-                or f.endswith(".czi") or "_MMStack_Pos" in f]
+    zarrs = [f for f in files
+             if os.path.exists(os.path.join(base, f, "meta.json"))]
+    n5s = [f for f in files if f.endswith(".n5")
+           and os.path.isdir(os.path.join(base, f))]
+    czis = [f for f in files if f.endswith(".czi")]
     if os.path.exists(h5):
         ds.loader = hdf5_loader(h5)
-    elif unported:
-        raise ValueError(f"{base}: reading {unported[0]!r} (zarr, n5, CZI "
-                         f"or MicroManager) is not ported yet")
+    elif zarrs:
+        from spim_registration_tpu_torch.core.zarr_store import zarr_loader
+
+        ds.loader = zarr_loader(os.path.join(base, zarrs[0]))
+    elif n5s:
+        from spim_registration_tpu_torch.core.zarr_store import (
+            n5_bdv_loader,
+        )
+
+        ds.loader = n5_bdv_loader(os.path.join(base, n5s[0]))
+    elif czis:
+        from spim_registration_tpu_torch.core.czi import czi_loader
+
+        ds.loader = czi_loader(os.path.join(base, czis[0]))
+    elif any("_MMStack_Pos" in f for f in files):
+        from spim_registration_tpu_torch.core.micromanager import (
+            micromanager_loader,
+        )
+
+        ds.loader = micromanager_loader(base)
     elif any(f.endswith(".npy") for f in files):
         ds.loader = npy_loader(base)
     else:
@@ -91,6 +121,59 @@ def _load_config(args):
         except json.JSONDecodeError:
             overrides[key] = val
     return apply_overrides(cfg, overrides) if overrides else cfg
+
+
+def _detect_format(base_path: str, fmt: str) -> str:
+    if fmt != "auto":
+        return fmt
+    import glob
+
+    if base_path.endswith(".czi") or glob.glob(
+            os.path.join(base_path, "*.czi")):
+        return "czi"
+    if glob.glob(os.path.join(base_path, "*_MMStack_Pos*.tif*")):
+        return "micromanager"
+    return "pattern"
+
+
+def cmd_define(args):
+    """Write `dataset.xml` for raw files on disk (Define_Multi_View_Dataset):
+    a filename pattern, a CZI, a MicroManager or a DHM export."""
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+
+    fmt = _detect_format(args.base_path, args.format)
+    if fmt == "czi":
+        import glob
+
+        from spim_registration_tpu_torch.core.czi import define_dataset_czi
+
+        path = args.base_path if args.base_path.endswith(".czi") \
+            else sorted(glob.glob(os.path.join(args.base_path, "*.czi")))[0]
+        ds = define_dataset_czi(path)
+        base = os.path.dirname(os.path.abspath(path))
+    elif fmt == "micromanager":
+        from spim_registration_tpu_torch.core.micromanager import (
+            define_dataset_micromanager,
+        )
+
+        ds = define_dataset_micromanager(args.base_path)
+        base = args.base_path
+    elif fmt == "dhm":
+        from spim_registration_tpu_torch.core.dhm import define_dataset_dhm
+
+        ds = define_dataset_dhm(args.base_path)
+        base = args.base_path
+    else:
+        from spim_registration_tpu_torch.core.define import define_dataset
+
+        ds = define_dataset(args.base_path, args.pattern,
+                            voxel_size=tuple(args.voxel_size))
+        base = args.base_path
+    xml = os.path.join(base, "dataset.xml")
+    save_dataset(ds, xml)
+    print(f"defined {len(ds.views)} views "
+          f"({len(ds.timepoints())} tp x {len(ds.setups())} setups) "
+          f"-> {xml}")
 
 
 def cmd_simulate(args):
@@ -221,26 +304,52 @@ def _resolve_bbox(ds, args, vols, models):
     return maximal_bounding_box([v.shape for v in vols], models)
 
 
-def _export_volume(args, ds, out, tp, what):
-    """Write a fused or deconvolved volume as `.npy`, or as TIFF for any
-    other suffix; `{tp}` in `--out` names the timepoint."""
+def _export_volume(args, ds, out, tp, bbox, what):
+    """Write a fused or deconvolved volume as `.npy`, a float32 zarr or n5
+    volume (`.zarr` / `.n5`) or TIFF for any other suffix (`{tp}` in
+    `--out` names the timepoint), or append it as a new view setup of an
+    existing BDV HDF5 and save the XML (`--append-hdf5`, the reference's
+    AppendSpimData2HDF5 export)."""
     from spim_registration_tpu_torch.core.imgloaders import save_tiff_stack
 
+    if args.append_hdf5:
+        from spim_registration_tpu_torch.core.resave import append_fused_hdf5
+
+        vid = append_fused_hdf5(ds, args.append_hdf5, out, timepoint=tp,
+                                bbox=bbox, xml_path=args.xml,
+                                device=args.device)
+        print(f"tp {tp}: {what} {out.shape} appended as setup "
+              f"{vid[1]} -> {args.append_hdf5} (+{args.xml})")
+        return
     n_tp = len(ds.timepoints())
     path = args.out.replace("{tp}", str(tp)) if "{tp}" in args.out \
         else (args.out if n_tp == 1 else f"tp{tp}_{args.out}")
-    if path.endswith(".zarr") or path.endswith(".n5"):
-        raise ValueError(f"{path}: zarr/n5 export is not ported yet")
     if path.endswith(".npy"):
         np.save(path, out)
+    elif path.endswith(".zarr") or path.endswith(".n5"):
+        from spim_registration_tpu_torch.core.zarr_store import create_volume
+
+        driver = "zarr" if path.endswith(".zarr") else "n5"
+        vol = create_volume(path, out.shape, dtype="float32",
+                            driver=driver)
+        vol.write(np.asarray(out, np.float32))
     else:
         save_tiff_stack(path, out)
     print(f"tp {tp}: {what} {out.shape} -> {path}")
 
 
+def _require_h5py(args) -> None:
+    """`--append-hdf5` needs h5py: check before any compute."""
+    if args.append_hdf5:
+        from spim_registration_tpu_torch.core.imgloaders import _optional
+
+        _optional("h5py", "--append-hdf5", instead="--out")
+
+
 def cmd_fuse(args):
     from spim_registration_tpu_torch.fuse.weighted_avg import fuse_views
 
+    _require_h5py(args)
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
     for tp in ds.timepoints():
@@ -254,7 +363,7 @@ def cmd_fuse(args):
             out = fuse_views(vols, models, bbox, cfg.fusion,
                              device=args.device)
         if out is not None:
-            _export_volume(args, ds, out, tp, "fused")
+            _export_volume(args, ds, out, tp, bbox, "fused")
 
 
 def _ooc_workdir(args, tp) -> str:
@@ -297,6 +406,7 @@ def cmd_deconvolve(args):
         prepare_views_for_deconvolution,
     )
 
+    _require_h5py(args)
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
     for tp in ds.timepoints():
@@ -322,7 +432,7 @@ def cmd_deconvolve(args):
                                                    device=args.device)
             out = deconvolve(prep, cfg.deconvolution, device=args.device)
         if out is not None:
-            _export_volume(args, ds, out, tp, "deconvolved")
+            _export_volume(args, ds, out, tp, bbox, "deconvolved")
 
 
 def _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs, bbox):
@@ -509,6 +619,33 @@ def cmd_cluster_merge(args):
     print(f"merged {len(jobs)} jobs into {args.out or args.xml}")
 
 
+def cmd_resave(args):
+    """Rewrite the views as HDF5, zarr or bdv.n5 pyramids (downsampled on
+    `--device`) and save the XML; later verbs read the new container."""
+    from spim_registration_tpu_torch.core.xml_io import save_dataset
+
+    ds = _dataset_with_loader(args.xml)
+    if args.format == "hdf5":
+        from spim_registration_tpu_torch.core.resave import resave_hdf5
+
+        out = args.out or args.h5 or os.path.join(ds.base_path, "data.h5")
+        resave_hdf5(ds, out, max_levels=args.levels, device=args.device)
+    elif args.format == "zarr":
+        from spim_registration_tpu_torch.core.zarr_store import resave_zarr
+
+        out = args.out or os.path.join(ds.base_path, "data.zarr")
+        resave_zarr(ds, out, max_levels=args.levels, device=args.device)
+    else:
+        from spim_registration_tpu_torch.core.zarr_store import (
+            resave_n5_bdv,
+        )
+
+        out = args.out or os.path.join(ds.base_path, "data.n5")
+        resave_n5_bdv(ds, out, max_levels=args.levels, device=args.device)
+    save_dataset(ds, args.xml)
+    print(f"resaved to {out}")
+
+
 def cmd_info(args):
     from spim_registration_tpu_torch.core.xml_io import load_dataset
 
@@ -536,6 +673,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "detection.sigma=2.0")
         sp.add_argument("--device", default="cuda",
                         help="where the stage runs: cuda (default) or cpu")
+        sp.add_argument("--profile", metavar="DIR",
+                        help="write a torch.profiler trace of this stage "
+                             "into DIR")
+
+    sp = sub.add_parser("define",
+                        help="define a dataset from files on disk")
+    sp.add_argument("base_path")
+    sp.add_argument("--pattern", default="tp{tp}_setup{setup}.npy",
+                    help="filename pattern with {tp} and {setup} or "
+                         "{angle}/{channel}/{illum}/{tile} placeholders")
+    sp.add_argument("--format", default="auto",
+                    choices=["auto", "pattern", "czi", "micromanager",
+                             "dhm"])
+    sp.add_argument("--voxel-size", type=float, nargs=3,
+                    default=[1.0, 1.0, 1.0], metavar=("Z", "Y", "X"))
+    sp.set_defaults(fn=cmd_define)
 
     sp = sub.add_parser("simulate", help="generate a synthetic dataset")
     sp.add_argument("--out", required=True)
@@ -599,7 +752,12 @@ def build_parser() -> argparse.ArgumentParser:
         sp = sub.add_parser(name)
         sp.add_argument("xml")
         sp.add_argument("--out", default=default,
-                        help=".npy, or TIFF for any other suffix")
+                        help=".npy, .zarr, .n5, or TIFF for any other "
+                             "suffix")
+        sp.add_argument("--append-hdf5", metavar="H5",
+                        help="append the output as a new view setup into "
+                             "this existing BDV HDF5 (+XML update) "
+                             "instead of writing --out")
         sp.add_argument("--bbox", metavar="NAME",
                         help="use this named bounding box from the XML "
                              "instead of the automatic maximal box")
@@ -633,6 +791,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--out")
     sp.set_defaults(fn=cmd_cluster_merge)
 
+    sp = sub.add_parser("resave", help="rewrite the views as HDF5, zarr "
+                        "or bdv.n5 pyramids")
+    sp.add_argument("xml")
+    sp.add_argument("--h5", help="HDF5 path (--format hdf5; default "
+                                 "data.h5 beside the XML)")
+    sp.add_argument("--out", help="output path (default data.h5, "
+                                  "data.zarr or data.n5 beside the XML)")
+    sp.add_argument("--format", default="hdf5",
+                    choices=("hdf5", "zarr", "n5"))
+    sp.add_argument("--levels", type=int, default=4)
+    sp.add_argument("--device", default="cuda",
+                    help="where the pyramids are downsampled: cuda "
+                         "(default) or cpu")
+    sp.set_defaults(fn=cmd_resave)
+
     sp = sub.add_parser("info")
     sp.add_argument("xml")
     sp.add_argument("--load-images", action="store_true")
@@ -648,6 +821,11 @@ def main(argv=None):
         return 2
     args = build_parser().parse_args(argv)
     try:
+        if getattr(args, "profile", None):
+            from spim_registration_tpu_torch.utils.profiling import trace
+
+            with trace(args.profile):
+                return args.fn(args) or 0
         return args.fn(args) or 0
     except (FileNotFoundError, KeyError, ValueError, ImportError) as e:
         print(f"error: {e}", file=sys.stderr)

@@ -2,10 +2,11 @@
 
 Copy of the reference's `core/imgloaders.py`: a loader is
 `(view_id) -> np.ndarray (z, y, x)` and `Dataset.loader` holds one.
-`.npy` volumes need nothing beyond numpy; TIFF stacks need `imageio` and
-BDV HDF5 needs `h5py`, both imported when a volume is read or written, so
-a machine without them runs everything on `.npy` and raises a clear
-ImportError on the other formats.
+`.npy` volumes (and CZI files, zarr and n5 containers: `core/czi.py`,
+`core/zarr_store.py`) need nothing beyond numpy; TIFF stacks need
+`imageio` and BDV HDF5 needs `h5py`, both imported when a volume is read
+or written, so a machine without them runs everything on the other
+formats and raises a clear ImportError on these.
 """
 
 from __future__ import annotations
@@ -19,13 +20,13 @@ import numpy as np
 ViewId = Tuple[int, int]
 
 
-def _optional(module: str, what: str):
+def _optional(module: str, what: str, instead: str = ".npy volumes"):
     try:
         return importlib.import_module(module)
     except ImportError as e:
         raise ImportError(f"{what} needs the `{module.split('.')[0]}` "
-                          f"package, which is not installed; use .npy "
-                          f"volumes instead") from e
+                          f"package, which is not installed; use "
+                          f"{instead} instead") from e
 
 
 def memory_loader(volumes: Dict[ViewId, np.ndarray]) -> Callable:

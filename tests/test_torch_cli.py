@@ -401,15 +401,36 @@ def test_apply_overrides_rejects_unknown_keys(key):
         config.apply_overrides(config.RunConfig(), {key: 1})
 
 
-def test_cli_errors_exit_2(work, tmp_path, capsys):
+def test_cli_errors_exit_2(work, tmp_path, capsys, monkeypatch):
+    import sys
+
+    from spim_registration_tpu.core import zarr_store as ref_zs
+
     xml = os.path.join(work["ref"], "dataset.xml")
     assert _port_dev("fuse", xml, "--bbox", "nope", "--out",
                      str(tmp_path / "f.npy")) == 2
     assert "not in dataset" in capsys.readouterr().err
-    for verb in cli.NOT_PORTED:
-        assert _port(verb, xml) == 2
-        assert "not ported" in capsys.readouterr().err
-    assert _port_dev("fuse", xml, "--out", str(tmp_path / "f.zarr")) == 2
+    assert cli.NOT_PORTED == ()
+    # the multi-device options are not ported: argparse refuses them
+    for argv in (("detect", xml, "--mesh", "z=8"),
+                 ("fuse", xml, "--multihost")):
+        with pytest.raises(SystemExit) as e:
+            _port_dev(*argv)
+        assert e.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
+    # a dataset resaved by the reference (blosc zarr) on a machine
+    # without tensorstore
+    ds = tmp_path / "blosc"
+    ds.mkdir()
+    np.save(ds / "tp0_setup0.npy", np.ones((8, 8, 8), np.float32))
+    assert _port("define", str(ds)) == 0
+    ref_zs.create_volume(str(ds / "data.zarr" / "t00000" / "s00" / "0"),
+                         (8, 8, 8)).write(np.ones((8, 8, 8), np.float32))
+    (ds / "data.zarr" / "meta.json").write_text("{}")
+    monkeypatch.setitem(sys.modules, "tensorstore", None)
+    assert _port_dev("detect", str(ds / "dataset.xml")) == 2
+    err = capsys.readouterr().err
+    assert "'blosc'" in err and "`tensorstore` package" in err
     assert _port_dev("detect", xml, "--set", "dom.nope=1") == 2
     assert _port("info", xml) == 0
     assert "transforms=['registration']" in capsys.readouterr().out

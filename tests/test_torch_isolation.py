@@ -123,13 +123,17 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "match.centerofmass", "match.icp", "ops.phase_correlation",
                 "pipeline.phase_init", "detect.tune",
                 "solve.optimization_types", "pipeline.tools",
-                "pipeline.timelapse", "pipeline.cluster")
+                "pipeline.timelapse", "pipeline.cluster", "utils.log",
+                "utils.profiling", "core.define", "core.czi",
+                "core.micromanager", "core.dhm", "core.zarr_store",
+                "core.resave")
 
 _IMPORT_NEW = r"""
 import importlib, sys
 sys.modules["jax"] = None
-sys.modules["imageio"] = None      # the card's machine has neither
+sys.modules["imageio"] = None      # the card's machine has none of these
 sys.modules["h5py"] = None
+sys.modules["tensorstore"] = None
 for n in sys.argv[1:]:
     importlib.import_module("spim_registration_tpu_torch." + n)
 from spim_registration_tpu_torch import cli
@@ -143,12 +147,77 @@ print("ok")
 @pytest.mark.parametrize("module", _NEW_MODULES)
 def test_cli_path_modules_import_without_jax(module):
     """Each module of the CLI path (and of kernels #5/#6) imports with jax,
-    imageio and h5py blocked, and the CLI parses its verbs."""
+    imageio, h5py and tensorstore blocked, and the CLI parses its verbs."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_NEW, module],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "ok"
+
+
+_RAW_STORES = r"""
+import sys
+for m in ("jax", "imageio", "h5py", "tensorstore"):
+    sys.modules[m] = None
+import numpy as np
+from spim_registration_tpu_torch.core.zarr_store import (
+    create_volume, open_volume)
+vol = np.arange(40 * 36 * 28, dtype=np.float32).reshape(40, 36, 28)
+for driver in ("zarr", "n5"):
+    path = sys.argv[1] + "/v." + driver
+    v = create_volume(path, vol.shape, chunks=(16, 16, 16), driver=driver)
+    v.write(vol)
+    v.write_block((13, 30, 20), -vol[:5, :6, :8])
+    want = vol.copy()
+    want[13:18, 30:36, 20:28] = -vol[:5, :6, :8]
+    assert np.array_equal(open_volume(path, driver).read(), want), driver
+print("ok")
+"""
+
+
+def test_raw_zarr_and_n5_round_trip_without_optional_packages(tmp_path):
+    """zarr and n5 need nothing beyond numpy: a round trip with a partial
+    block write, with jax, imageio, h5py and tensorstore blocked."""
+    out = subprocess.run([sys.executable, "-c", _RAW_STORES, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_format_entry_points_refuse_to_run_without_cuda(monkeypatch,
+                                                         tmp_path):
+    """The pyramids of `resave` run on the card unless the CPU is named
+    (HDF5's go through the same `_pyramid`; h5py is absent on the card's
+    machine, where this file also runs)."""
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core.dataset import (
+        Dataset,
+        ViewDescription,
+    )
+    from spim_registration_tpu_torch.core.imgloaders import memory_loader
+    from spim_registration_tpu_torch.core.zarr_store import (
+        _mipmap_levels,
+        _pyramid,
+        resave_n5_bdv,
+        resave_zarr,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vol = np.ones((8, 8, 8), np.float32)
+    ds = Dataset(base_path=str(tmp_path),
+                 loader=memory_loader({(0, 0): vol}))
+    ds.add_view(ViewDescription(view_id=(0, 0), size=(8, 8, 8)))
+    np.save(tmp_path / "tp0_setup0.npy", vol)
+    assert cli.main(["define", str(tmp_path)]) == 0
+    for call in (lambda: next(_pyramid(vol, _mipmap_levels(vol.shape),
+                                       np.float32)),
+                 lambda: resave_zarr(ds, str(tmp_path / "z")),
+                 lambda: resave_n5_bdv(ds, str(tmp_path / "n")),
+                 lambda: cli.main(["resave", str(tmp_path / "dataset.xml"),
+                                   "--format", "zarr"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_cli_path_entry_points_refuse_to_run_without_cuda(monkeypatch,
