@@ -91,7 +91,22 @@ package) and exits nonzero on any failure:
    --out psi.n5` (zpass and sl_rows launches) -> `run_checkpointed` into
    a `ZarrCheckpointer`; the verbs that need `h5py` or `imageio` run
    where they are installed and otherwise must exit 2 naming the package;
-   walls per verb and MB/s of the container writes and reads.
+   walls per verb and MB/s of the container writes and reads;
+13. the in-process device mesh (`phase_mesh`, after the pipeline phase),
+   4 positions over the visible cards (all on cuda:0 on one card): (a)
+   the RL main path z-sharded through `sharded_deconvolution_runner`,
+   lowrank and FFT, against the in-memory runner, with both walls, the
+   launches (20 iterations x kernels x 4 shards) and zpass and sl_rows
+   held against their plain versions on the first shard conv's inputs;
+   (b) the view axis (`view=2, z=2`, parallel scheme, stacked matrices,
+   float32 and bf16); (c) the pipeline's 208^3 box on `z=3` (ragged);
+   (d) the detection configuration through `detect_beads_dataset(mesh=)`
+   (segtopk on every shard, held exactly against its plain version on
+   the first shard's field); (e) `sharded_fuse_views` and (f)
+   `register_views(mesh=)` on the pipeline scene; (g) the blocked engine
+   on the mesh at 4 x 256^3 x 2 iterations; (h) the CLI verbs with
+   `--mesh z=1` (and `z=N` on N > 1 cards; on one card `--mesh z=2` must
+   exit 2) against the same verbs without it.
 
 Each phase prints one JSON line, and a `walls` line gives every phase's
 wall; then a `kernels` JSON line, the nvidia-smi line, and last
@@ -104,11 +119,14 @@ the segment top-k, `--dog-of DIR` the fused DoG
 (`detection_kernel_alone`), `--zfused-of DIR` the fully fused lowrank
 conv (`zfused_alone`), without the result line: to compare two
 checkouts, run parent, change, change, parent in one call.
+`--mesh-only` runs the card, build, pipeline and mesh phases of this
+checkout, without the result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import os
@@ -174,11 +192,17 @@ def nrmse(a, b) -> float:
     return float(np.sqrt(np.mean((a - b) ** 2)) / (a.max() - a.min()))
 
 
+def sync_all() -> None:
+    """Wait for every visible card (a mesh may span several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def sync_wall(fn):
-    torch.cuda.synchronize()
+    sync_all()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -1807,11 +1831,12 @@ def phase_rl(psfs, factors) -> tuple:
 
 def device_profile(fn, top: int = 14) -> dict:
     """Device time by kernel and the device's idle share over one call of
-    `fn` (torch.profiler)."""
+    `fn` (torch.profiler; on a mesh of several cards the busy time sums
+    over the cards)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    sync_all()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = sync_wall(fn)
@@ -2176,6 +2201,8 @@ def phase_pipeline() -> None:
     if launches["zpass"] == 0 or launches["sl_rows"] == 0:
         raise AssertionError(f"deconvolve did not run the kernels: "
                              f"{launches}")
+    return {"scene": scene, "reg": reg, "cfg": cfg, "bbox": bbox,
+            "prep": prep, "fused": fused, "deconv": deconv}
 
 
 def timelapse_series() -> dict:
@@ -2647,6 +2674,678 @@ def phase_small_vs_cpu() -> None:
                              f"launches {det_launches}")
 
 
+# ------------------------------------------------------------------ mesh
+
+# phase mesh: positions of the in-process mesh (all on one card when it
+# is the only one); the limits: sharded RL against the in-memory engine
+# (nrmse; the blocked engine, which re-tiles z the same way, reached
+# 2.18e-5 against it, PERF.md), the FFT backend as
+# tests/test_parallel.py:102, the blocked engine on the mesh against it
+# on one device (the same block updates), fusion and the CLI as
+# tests/test_cli_mesh.py, detection as tests/test_parallel.py:170-172
+MESH_POSITIONS = 4
+# case (a)'s walls: runs of each engine after its warm-up
+MESH_WALL_RUNS = 5
+MESH_RL_TOL = 1e-4
+MESH_FFT_RTOL, MESH_FFT_ATOL = 2e-3, 2e-4
+MESH_VIEW_F32_ITERS = 2
+MESH_OOC_ITERS, MESH_OOC_TOL = 2, 1e-5
+MESH_FUSE_ATOL = 2e-6
+MESH_DETECT_PX = 0.05
+MESH_MODEL_TOL = 1e-4
+MESH_CLI_DECONV_TOL = 2e-5
+# the sub-pixel walk moves its centre while an offset exceeds 0.5: a peak
+# whose offset lies within MESH_STEP_BOUNDARY of 0.5 may end a voxel
+# apart in two engines whose DoG differ by f32 rounding. Case (h) accepts
+# such a pair only with a float64 witness (`tie_witness`): the float64
+# DoG's fit at the centre the walk left puts that offset within
+# MESH_TIE_EPS of 0.5, so f32 rounding decides the step. At most one
+# such pair in MESH_STEP_BOUNDARY_PER peaks.
+MESH_STEP_BOUNDARY = 1e-3
+MESH_TIE_EPS = 1e-4
+MESH_STEP_BOUNDARY_PER = 100
+
+
+def mesh_devices(n: int = MESH_POSITIONS) -> list:
+    """n mesh positions over the visible cards in turn (all on cuda:0
+    when it is the only one)."""
+    k = torch.cuda.device_count()
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+class capture_first:
+    """Record the arguments of the first call of `module.name` inside the
+    block (the call still runs). A wrapper counts its launches on its
+    module's name (`zpass.launches += 1`): where that name is the one
+    patched, the spy takes the counts meanwhile and hands them back to
+    the real function on exit."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        real = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            if self.args is None:
+                self.args = (a, kw)
+            return real(*a, **kw)
+
+        spy.launches = self.start = real.launches
+        self.real, self.spy = real, spy
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        self.real.launches += self.spy.launches - self.start
+        setattr(self.module, self.name, self.real)
+
+
+def mesh_kernels_at_shard(zp_args, sl_args) -> dict:
+    """zpass and sl_rows on the first shard conv's own inputs (the band
+    (R, zl, zl + 2 hz) over a halo-extended 64-row shard) against their
+    plain versions, with single-call times."""
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+    (mz, vm, win), _ = zp_args
+    (a, My, Mx, ry, rx), _ = sl_args
+    out = {"zpass": kernel_error(lc.zpass(mz, vm, win),
+                                 lc.zpass_reference(mz, vm)),
+           "sl_rows": kernel_error(lc.sl_rows(a, My, Mx, ry, rx),
+                                   lc.fused_sl_reference(a, My, Mx))}
+    out["zpass"].update(shape={"Mz": list(mz.shape), "vm": list(vm.shape)},
+                        ms=cuda_ms(lambda: lc.zpass(mz, vm, win), 10),
+                        plain_ms=cuda_ms(lambda: lc.zpass_reference(mz, vm),
+                                         3))
+    out["sl_rows"].update(shape={"a": list(a.shape), "My": list(My.shape)},
+                          ms=cuda_ms(lambda: lc.sl_rows(a, My, Mx, ry, rx),
+                                     10),
+                          plain_ms=cuda_ms(
+                              lambda: lc.fused_sl_reference(a, My, Mx), 3))
+    return out
+
+
+def wall_spread(walls) -> dict:
+    """Median, least and largest of a list of walls (s), and the spread
+    (largest - least) over the median."""
+    med = float(np.median(walls))
+    return {"n": len(walls), "median_s": med, "min_s": float(min(walls)),
+            "max_s": float(max(walls)),
+            "spread": float((max(walls) - min(walls)) / med)}
+
+
+def mesh_rl(prep, mesh) -> dict:
+    """(a) config #4 through `sharded_deconvolution_runner` on the z mesh,
+    lowrank (sequential, 20 iterations) and FFT, each against the
+    in-memory runner on the card; walls of both (MESH_WALL_RUNS runs
+    after a warm-up, with their median and spread; the sharded run
+    returns its shards on the card); launches of
+    the counted lowrank run and a torch.profiler breakdown of one more;
+    zpass and sl_rows held against their plain versions on the first
+    shard conv's inputs."""
+    from spim_registration_tpu_torch.deconv import DeconvolutionRunner
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.parallel import (
+        sharded_deconvolution_runner,
+    )
+    from spim_registration_tpu_torch.parallel.mesh import gather
+
+    info = {}
+    for backend in ("lowrank", "fft"):
+        params = rl_params(backend, N_ITER)
+        mem = DeconvolutionRunner(prep, params)
+        want = mem.run()
+        mem_walls = [sync_wall(mem.run)[1] for _ in range(MESH_WALL_RUNS)]
+        run, stage_s = sync_wall(lambda: sharded_deconvolution_runner(
+            prep, params, mesh, device_result=True))
+        with capture_first(lc, "zpass") as zp, \
+                capture_first(lc, "sl_rows") as sl:
+            sync_wall(run)
+        reset_launches()
+        shards, wall = sync_wall(run)
+        launches = read_launches()
+        walls = [wall] + [sync_wall(run)[1]
+                          for _ in range(MESH_WALL_RUNS - 1)]
+        got = gather(shards, mesh, ("z",))[:SHAPE[0]]
+        want = want.cpu().numpy()
+        case = {"staging_s": stage_s, "sharded_walls_s": walls,
+                "sharded_wall": wall_spread(walls),
+                "in_memory_walls_s": mem_walls,
+                "in_memory_wall": wall_spread(mem_walls),
+                "launches": launches,
+                "finite": bool(np.all(np.isfinite(got)))}
+        if backend == "lowrank":
+            n_mat = sum("mat" in e for e in mem.k1_ffts + mem.k2_ffts)
+            case["expected_launches"] = N_ITER * n_mat * mesh.size
+            case["nrmse"] = nrmse(want, got)
+            case["tol"] = MESH_RL_TOL
+            case["ok"] = bool(case["nrmse"] <= MESH_RL_TOL and case["finite"]
+                              and launches["zpass"] == launches["sl_rows"]
+                              == case["expected_launches"])
+            case["profile"] = device_profile(run)
+            case["shard_kernels"] = mesh_kernels_at_shard(zp.args, sl.args)
+            case["ok"] &= all(k["ok"] for k in
+                              case["shard_kernels"].values())
+        else:
+            d = np.abs(got - want)
+            case["max_abs_err"] = float(d.max())
+            case["rtol"], case["atol"] = MESH_FFT_RTOL, MESH_FFT_ATOL
+            case["ok"] = bool(np.all(d <= MESH_FFT_ATOL + MESH_FFT_RTOL
+                                     * np.abs(want)) and case["finite"])
+        info[backend] = case
+        del mem, run, shards
+        torch.cuda.empty_cache()
+    return info
+
+
+def mesh_view_axis(prep) -> dict:
+    """(b) the view axis: `view=2, z=2` positions, the parallel scheme,
+    stacked lowrank matrices, each against the in-memory parallel run
+    (MESH_RL_TOL): bf16 over 20 iterations (its dither phase advances per
+    iteration, the in-memory run's per view-update, so the two round
+    differently) and float32 (one phase: the same sums) over
+    MESH_VIEW_F32_ITERS iterations: the float32 kernels take ~0.24 s a
+    conv at these shapes (7.6 s for 2 iterations, NVIDIA H100 80GB HBM3,
+    700.00 W)."""
+    from spim_registration_tpu_torch.deconv import DeconvolutionRunner
+    from spim_registration_tpu_torch.parallel import (
+        make_mesh,
+        sharded_deconvolve,
+    )
+
+    mesh = make_mesh(("view", "z"), (2, 2), devices=mesh_devices())
+    out = {"mesh": {"view": 2, "z": 2}}
+    for dtype, n_iter in (("bfloat16", N_ITER),
+                          ("float32", MESH_VIEW_F32_ITERS)):
+        tol = MESH_RL_TOL
+        params = dataclasses.replace(rl_params("lowrank", n_iter),
+                                     scheme="parallel", lowrank_dtype=dtype)
+        want = DeconvolutionRunner(prep, params).run().cpu().numpy()
+        reset_launches()
+        got, wall = sync_wall(lambda: sharded_deconvolve(
+            prep, params, mesh, view_axis="view"))
+        launches = read_launches()
+        e = nrmse(want, got)
+        out[dtype] = {"iters": n_iter, "nrmse": e, "tol": tol,
+                      "wall_s": wall,
+                      "launches": launches,
+                      "ok": bool(e <= tol and np.all(np.isfinite(got))
+                                 and launches["zpass"] > 0
+                                 and launches["sl_rows"] > 0)}
+    return out
+
+
+def mesh_ragged(pipe) -> dict:
+    """(c) the pipeline's 208^3 box on `z=3` (208 = 3 x 69 + 1: mirror
+    rows re-pinned after every update), its 10 lowrank iterations against
+    the pipeline phase's in-memory `deconvolve`."""
+    from spim_registration_tpu_torch.deconv import DeconvolutionParameters
+    from spim_registration_tpu_torch.parallel import (
+        make_mesh,
+        sharded_deconvolution_runner,
+    )
+
+    mesh = make_mesh(("z",), (3,), devices=mesh_devices(3))
+    params = DeconvolutionParameters(num_iterations=10,
+                                     conv_backend="lowrank")
+    run = sharded_deconvolution_runner(pipe["prep"], params, mesh)
+    reset_launches()
+    got, wall = sync_wall(run)
+    launches = read_launches()
+    e = nrmse(pipe["deconv"], got)
+    return {"depth": run.true_depth, "padded_depth": run.padded_depth,
+            "nrmse": e, "tol": MESH_RL_TOL, "wall_s": wall,
+            "launches": launches,
+            "ok": bool(e <= MESH_RL_TOL and got.shape == pipe["deconv"].shape
+                       and launches["zpass"] > 0)}
+
+
+def _nearest(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest distance from a point of `a` to its nearest in `b`."""
+    if len(a) == 0:
+        return 0.0
+    d = np.linalg.norm(a[:, None] - b[None], axis=-1)
+    return float(d.min(axis=1).max())
+
+
+def mesh_detect(mesh) -> dict:
+    """(d) phase detect's 8 views through `detect_beads_dataset(mesh=...)`
+    against the single-device engine: the same counts, every point within
+    MESH_DETECT_PX of one of the other's; segtopk held against its plain
+    version, exactly, on the first shard's field."""
+    from spim_registration_tpu_torch.core.dataset import (
+        Dataset,
+        ViewDescription,
+    )
+    from spim_registration_tpu_torch.detect import DoGParameters
+    from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
+    from spim_registration_tpu_torch.ops import extrema
+    from spim_registration_tpu_torch.ops.kernels import segtopk as st
+
+    vol = detection_volume()
+    rng = np.random.default_rng(11)
+    views = {(0, s): vol + rng.normal(0, 1e-4, vol.shape).astype(np.float32)
+             for s in range(DETECT_VIEWS)}
+    params = DoGParameters(sigma=1.8, threshold=0.004)
+    pts, walls, launches = {}, {}, {}
+    for name, kw in (("single", {}), ("mesh", {"mesh": mesh})):
+        ds = Dataset(base_path=str(ROOT))
+        for vid in views:
+            ds.views[vid] = ViewDescription(view_id=vid, size=SHAPE)
+        ds.loader = views.__getitem__
+        if name == "mesh":
+            with capture_first(extrema, "segment_topk") as cap:
+                detect_beads_dataset(ds, view_ids=[(0, 0)], params=params,
+                                     **kw)
+        reset_launches()
+        _, walls[name] = sync_wall(lambda: detect_beads_dataset(
+            ds, params=params, **kw))
+        launches[name] = read_launches()
+        pts[name] = {vid: np.asarray(ds.views[vid].interest_points[
+            "beads"].points) for vid in views}
+    counts = {k: [len(pts[k][v]) for v in views] for k in pts}
+    far = max(max(_nearest(pts["single"][v], pts["mesh"][v]),
+                  _nearest(pts["mesh"][v], pts["single"][v]))
+              for v in views)
+    seg = {"segments": 0, "equal": [False], "max_abs_err": None}
+    if cap.args is not None:   # None: no shard took the segment path
+        (tiles, rounds), _ = cap.args
+        got = st.segment_topk(tiles, rounds)
+        want = st.segment_topk_reference(tiles, rounds)
+        torch.cuda.synchronize()
+        seg = {"segments": int(tiles.shape[0]),
+               "equal": [bool(torch.equal(a, b)) for a, b in zip(got, want)],
+               "max_abs_err": float((got[0] - want[0]).abs()
+                                    .nan_to_num(0.0).max())}
+    out = {"counts": counts, "max_nearest_px": far, "tol_px": MESH_DETECT_PX,
+           "walls_s": walls, "launches": launches, "shard_segtopk": seg,
+           "expected_segtopk": DETECT_VIEWS * mesh.size}
+    out["ok"] = bool(counts["single"] == counts["mesh"]
+                     and far < MESH_DETECT_PX and all(seg["equal"])
+                     and launches["mesh"]["segtopk"]
+                     == out["expected_segtopk"])
+    return out
+
+
+def mesh_fuse_register(pipe, mesh) -> dict:
+    """(e) `sharded_fuse_views` on the pipeline scene's box against the
+    pipeline phase's `fuse_views`; (f) `register_views(mesh=...)` against
+    its single-device registration: the same inlier sets (as point pairs:
+    the sharded detection lists points in another order), models within
+    MESH_MODEL_TOL."""
+    from spim_registration_tpu_torch.fuse import FusionParameters
+    from spim_registration_tpu_torch.parallel import sharded_fuse_views
+    from spim_registration_tpu_torch.pipeline import register_views
+
+    scene, reg = pipe["scene"], pipe["reg"]
+    fused, fwall = sync_wall(lambda: sharded_fuse_views(
+        scene.volumes, reg.models, pipe["bbox"], FusionParameters(),
+        mesh=mesh))
+    fuse_err = float(np.abs(fused - pipe["fused"]).max())
+    reset_launches()
+    mreg, rwall = sync_wall(lambda: register_views(
+        scene.volumes, pipe["cfg"], mesh=mesh))
+    launches = read_launches()
+    model_err = max(float(np.abs(a - b).max())
+                    for a, b in zip(reg.models, mreg.models))
+
+    def pairs_of(res, points, pair):
+        i, j = pair
+        rows = np.round(np.concatenate(
+            [points[i][res.inliers[:, 0]], points[j][res.inliers[:, 1]]],
+            1), 3)
+        return rows[np.lexsort(rows.T)]
+
+    same = all(
+        r.num_inliers == mreg.pair_results[p].num_inliers
+        and np.allclose(pairs_of(r, reg.points, p),
+                        pairs_of(mreg.pair_results[p], mreg.points, p),
+                        atol=2e-3)
+        for p, r in reg.pair_results.items())
+    return {"fuse": {"wall_s": fwall, "max_abs_err": fuse_err,
+                     "atol": MESH_FUSE_ATOL,
+                     "ok": bool(fuse_err <= MESH_FUSE_ATOL)},
+            "register": {"wall_s": rwall, "model_max_err": model_err,
+                         "tol": MESH_MODEL_TOL, "same_inliers": same,
+                         "launches": launches,
+                         "ok": bool(same and model_err <= MESH_MODEL_TOL
+                                    and launches["segtopk"]
+                                    == N_VIEWS * mesh.size)}}
+
+
+def mesh_ooc(prep, mesh) -> dict:
+    """(g) the blocked lowrank engine on the mesh (4 blocks of 64 rows, one
+    a position) against the same engine on one device, at 4 x 256^3 over
+    MESH_OOC_ITERS iterations (cut from 20 for time; the width is not
+    cut), in-memory stores."""
+    from spim_registration_tpu_torch.deconv.blocked import (
+        ArrayStore,
+        BlockedDeconvolutionInputs,
+        BlockedDeconvolutionRunner,
+    )
+
+    imgs = prep.images.cpu().numpy()
+    ws = prep.weights.cpu().numpy()
+    params = rl_params("lowrank", MESH_OOC_ITERS)
+    inputs = BlockedDeconvolutionInputs(
+        [ArrayStore(imgs[v]) for v in range(N_VIEWS)],
+        [ArrayStore(ws[v]) for v in range(N_VIEWS)], prep.psfs,
+        prep.osem_factor, psf_factors=prep.psf_factors)
+    out, walls, launches = {}, {}, {}
+    for name, kw in (("single", {}), ("mesh", {"mesh": mesh})):
+        psi = ArrayStore(np.zeros(SHAPE, np.float32))
+        runner = BlockedDeconvolutionRunner(inputs, psi, params,
+                                            block_z=OOC_BLOCK_Z, **kw)
+        reset_launches()
+        _, walls[name] = sync_wall(runner.run)
+        launches[name] = read_launches()
+        out[name] = psi.array
+    e = nrmse(out["single"], out["mesh"])
+    return {"iters": MESH_OOC_ITERS, "block_z": OOC_BLOCK_Z, "nrmse": e,
+            "identical": bool(np.array_equal(out["single"], out["mesh"])),
+            "tol": MESH_OOC_TOL, "walls_s": walls, "launches": launches,
+            "ok": bool(e <= MESH_OOC_TOL and launches["mesh"]["zpass"] > 0
+                       and launches["mesh"] == launches["single"])}
+
+
+def step_boundary_pairs(a: np.ndarray, b: np.ndarray, atol: float):
+    """Match two peak lists: (unmatched, boundary pairs). A point of `a`
+    without a point of `b` within `atol` is a boundary pair [a_i, b_j]
+    where b_j, its nearest point of `b`, lies within 1.5 px and the
+    sub-pixel offset of a_i or b_j on the axis they differ most sits
+    within MESH_STEP_BOUNDARY of +-0.5: the refinement's step rule (move
+    the centre one voxel while an offset exceeds 0.5) may then take
+    either side on f32 rounding differences of the two engines' DoG,
+    which `tie_witness` checks. Returns (points of `a` left unmatched
+    otherwise, the boundary pairs)."""
+    if len(a) == 0 or len(b) == 0:
+        return len(a) + len(b), []
+    d = np.linalg.norm(a[:, None] - b[None], axis=-1)
+    left, pairs = 0, []
+    for i in np.nonzero(d.min(axis=1) > atol)[0]:
+        j = int(d[i].argmin())
+        ax = int(np.abs(a[i] - b[j]).argmax())
+        fracs = [abs(p[ax] - np.round(p[ax])) for p in (a[i], b[j])]
+        if d[i, j] <= 1.5 and min(abs(f - 0.5) for f in fracs) \
+                <= MESH_STEP_BOUNDARY:
+            pairs.append([a[i].tolist(), b[j].tolist()])
+        else:
+            left += 1
+    return left, pairs
+
+
+def tie_witness(vol: np.ndarray, params, pair, mesh) -> dict:
+    """Float64 evidence that a step-boundary pair is an f32 tie. `pair`
+    is the two engines' points; a is the one whose offset sits nearer
+    +-0.5 on the axis the two differ most. The quadratic fit is taken at
+    the two voxels a lies between on that axis (its rounded voxel on the
+    others) on three response fields: the single-device detection's
+    (`dog_response`) in float64 and in float32, and the z-sharded
+    engine's on `mesh` (`_dog_shards`, float32). It is a tie where, at
+    one of the two voxels, the float64 offset on that axis lies within
+    MESH_TIE_EPS of the step threshold 0.5 and the two engines' float32
+    offsets lie on either side of it (one steps, the other does not)."""
+    from spim_registration_tpu_torch.detect.dog import dog_response
+    from spim_registration_tpu_torch.ops.extrema import (
+        _gather27,
+        _quadratic_step_batched,
+    )
+    from spim_registration_tpu_torch.parallel.sharded_detect import (
+        _REFINE_MARGIN,
+        _dog_shards,
+    )
+
+    if params.downsample_z != 1 or params.downsample_xy != 1:
+        raise ValueError("tie_witness: the CLI's detection has no "
+                         "downsampling")
+    a, b = (np.asarray(p, np.float64) for p in pair)
+    ax = int(np.abs(a - b).argmax())
+    if abs(abs(b[ax] - np.round(b[ax])) - 0.5) \
+            < abs(abs(a[ax] - np.round(a[ax])) - 0.5):
+        a, b = b, a
+    c = np.round(a).astype(np.int64)
+    centres = []
+    for k in (np.floor(a[ax]), np.ceil(a[ax])):
+        c[ax] = int(k)
+        centres.append(c.copy())
+
+    def fit(dog, z_lo=0):
+        """The offsets on `ax` at the centres; dog[0] is global row z_lo."""
+        Z, Y, X = dog.shape
+        base = torch.tensor([(int(q[0]) - z_lo) * Y * X + int(q[1]) * X
+                             + int(q[2]) for q in centres],
+                            device=dog.device)
+        off, _ = _quadratic_step_batched(_gather27(dog.reshape(-1), base,
+                                                   Y * X, X))
+        return off[:, ax].double().cpu().tolist()
+
+    v = torch.from_numpy(np.asarray(vol, np.float32)).cuda()
+    offsets = {"single_f64": fit(dog_response(v.double(), params)),
+               "single_f32": fit(dog_response(v, params))}
+    del v
+    dogs, zl, _ = _dog_shards(vol, params, mesh, mesh.axis_names[-1])
+    p = int(centres[0][0]) // zl
+    offsets["mesh_f32"] = fit(dogs[p], p * zl - _REFINE_MARGIN)
+    del dogs
+    gaps = [abs(abs(o) - 0.5) for o in offsets["single_f64"]]
+    t = int(np.argmin(gaps))
+    steps = [abs(offsets[k][t]) > 0.5 for k in ("single_f32", "mesh_f32")]
+    return {"axis": ax, "centres": [q.tolist() for q in centres],
+            **{f"offset_{k}": o for k, o in offsets.items()},
+            "gap_f64": gaps[t], "tol": MESH_TIE_EPS,
+            "f32_steps": steps,
+            "ok": bool(gaps[t] <= MESH_TIE_EPS and steps[0] != steps[1])}
+
+
+def mesh_cli() -> dict:
+    """(h) the CLI verbs with `--mesh z=1` (and `z=N` where N > 1 cards are
+    visible) on phase cli's dataset (simulated again from its seed),
+    against the same verbs without `--mesh`, as tests/test_cli_mesh.py
+    pairs them: `detect` on two copies (the same counts; every point
+    within 1e-3 px of one of the other's, except step-boundary pairs
+    (`step_boundary_pairs`), at most one in MESH_STEP_BOUNDARY_PER
+    points, each held to its float64 witness (`tie_witness`)); `register`
+    with and without on two copies of one detected XML (models within
+    1e-5); `fuse` and `deconvolve` (FFT, 3 iterations) on one registered
+    XML (atol MESH_FUSE_ATOL, nrmse < MESH_CLI_DECONV_TOL); `cluster-job
+    --tp 0` on two copies (points as `detect`'s; models within
+    CLI_CLUSTER_TOL, and where witnessed ties moved points, the difference
+    is printed and the mesh job's models are held within CLI_CLUSTER_TOL
+    of `register` without the mesh on the single-device points with the
+    tie points swapped for the mesh's). On one card `detect --mesh z=2`
+    must exit 2 with "mesh needs 2 devices, have 1"."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core.xml_io import (
+        load_dataset,
+        save_dataset,
+    )
+    from spim_registration_tpu_torch.parallel import mesh_from_spec
+
+    def run(argv) -> int:
+        err, buf = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        run.err = err.getvalue()
+        return rc
+
+    def ok_run(argv) -> None:
+        if run(argv) != 0:
+            raise AssertionError(f"cli {argv} exited non-zero: "
+                                 f"{run.err[-400:]}")
+
+    def state(xml):
+        ds = load_dataset(xml)
+        pts = {vid: np.asarray(vd.interest_points["beads"].points)
+               for vid, vd in ds.views.items()}
+        return pts, {vid: vd.model() for vid, vd in ds.views.items()}
+
+    def model_err(a, b) -> float:
+        return max(float(np.abs(a[v] - b[v]).max()) for v in a)
+
+    def compare_points(xml_one, xml_mesh, mesh_obj):
+        """Counts, unmatched points and the witnessed step-boundary
+        pairs of two detections of the base dataset."""
+        p1, pm = state(xml_one)[0], state(xml_mesh)[0]
+        counts = [[len(p1[v]), len(pm[v])] for v in p1]
+        left, pairs = 0, []
+        for v in p1:
+            n_left, bp = step_boundary_pairs(p1[v], pm[v], 1e-3)
+            left += n_left
+            for pr in bp:
+                pairs.append({"view": list(v), "pair": pr,
+                              "witness": tie_witness(
+                                  base_ds.get_image(v), params, pr,
+                                  mesh_obj)})
+        n_pts = sum(c[0] for c in counts)
+        ok = bool(all(a == b for a, b in counts) and left == 0
+                  and len(pairs) * MESH_STEP_BOUNDARY_PER <= n_pts
+                  and all(p["witness"]["ok"] for p in pairs))
+        return {"counts": counts, "unmatched": left,
+                "step_boundary_pairs": pairs, "ok": ok}
+
+    n_cards = torch.cuda.device_count()
+    specs = ["z=1"] + ([f"z={n_cards}"] if n_cards > 1 else [])
+    walls = {}
+    out = {"specs": specs}
+    ok = True
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_mesh_smoke_") as d:
+        def copy(name, src="base"):
+            shutil.copytree(os.path.join(d, src), os.path.join(d, name))
+            return os.path.join(d, name, "dataset.xml")
+
+        t0 = time.perf_counter()
+        ok_run(["simulate", "--out", os.path.join(d, "base"), "--views",
+                str(N_VIEWS), "--shape", *map(str, SHAPE), "--beads", "300",
+                "--blur", "--seed", "11"])
+        walls["simulate"] = time.perf_counter() - t0
+        base_ds = cli._dataset_with_loader(os.path.join(d, "base",
+                                                        "dataset.xml"))
+        params = cli._load_config(cli.build_parser().parse_args(
+            ["detect", os.path.join(d, "base", "dataset.xml")])).detection
+        one = copy("one")
+        ok_run(["detect", one])
+        reg = copy("reg", "one")
+        ok_run(["register", reg])
+        fused1, psi1 = (os.path.join(d, f) for f in ("f1.npy", "p1.npy"))
+        ok_run(["fuse", reg, "--out", fused1])
+        iters = ["--set", "deconvolution.num_iterations=3"]
+        ok_run(["deconvolve", reg, "--out", psi1, *iters])
+        job1 = copy("job_one")
+        ok_run(["cluster-job", job1, "--tp", "0"])
+        job1 = os.path.join(os.path.dirname(job1), "job_tp0.xml")
+        for spec in specs:
+            tag = spec.replace("=", "")
+            mesh = ["--mesh", spec]
+            t0 = time.perf_counter()
+            det = copy("det_" + tag)
+            ok_run(["detect", det, *mesh])
+            regm = copy("reg_" + tag, "one")
+            ok_run(["register", regm, *mesh])
+            fused, psi = (os.path.join(d, f"{f}_{tag}.npy")
+                          for f in ("f", "p"))
+            ok_run(["fuse", reg, "--out", fused, *mesh])
+            ok_run(["deconvolve", reg, "--out", psi, *iters, *mesh])
+            job = copy("job_" + tag)
+            ok_run(["cluster-job", job, "--tp", "0", *mesh])
+            job = os.path.join(os.path.dirname(job), "job_tp0.xml")
+            walls[spec] = time.perf_counter() - t0
+            mesh_obj = mesh_from_spec(spec, "cuda")
+            detect = compare_points(one, det, mesh_obj)
+            cluster = compare_points(job1, job, mesh_obj)
+            cluster["model_max_err"] = model_err(state(job1)[1],
+                                                 state(job)[1])
+            if cluster["step_boundary_pairs"]:
+                # the single-device points (`detect` without the mesh:
+                # the job's) with the tie points swapped for the mesh's,
+                # registered without the mesh
+                swap = copy("swap_" + tag, "one")
+                ds = load_dataset(swap)
+                for bp in cluster["step_boundary_pairs"]:
+                    ips = ds.views[tuple(bp["view"])].interest_points[
+                        "beads"]
+                    a, b = (np.asarray(q) for q in bp["pair"])
+                    i = int(np.abs(ips.points - a).max(axis=1).argmin())
+                    ips.points[i] = b
+                save_dataset(ds, swap)
+                ok_run(["register", swap])
+                cluster["swapped_model_max_err"] = model_err(
+                    state(swap)[1], state(job)[1])
+                cluster["ok"] &= bool(cluster["swapped_model_max_err"]
+                                      <= CLI_CLUSTER_TOL)
+            else:
+                cluster["ok"] &= bool(cluster["model_max_err"]
+                                      <= CLI_CLUSTER_TOL)
+            case = {
+                "detect": detect, "cluster_job": cluster,
+                "register_model_max_err": model_err(state(reg)[1],
+                                                    state(regm)[1]),
+                "fuse_max_abs_err": float(np.abs(
+                    np.load(fused1) - np.load(fused)).max()),
+                "deconvolve_nrmse": nrmse(np.load(psi1), np.load(psi))}
+            case["ok"] = bool(
+                detect["ok"] and cluster["ok"]
+                and case["register_model_max_err"] <= 1e-5
+                and case["fuse_max_abs_err"] <= MESH_FUSE_ATOL
+                and case["deconvolve_nrmse"] < MESH_CLI_DECONV_TOL)
+            ok &= case["ok"]
+            out[spec] = case
+        if n_cards == 1:
+            rc = run(["detect", copy("refuse"), "--mesh", "z=2"])
+            out["refused_z2"] = {"rc": rc, "said": run.err.strip()[-120:]}
+            ok &= rc == 2 and "mesh needs 2 devices, have 1" in run.err
+    out["walls_s"] = walls
+    out["ok"] = bool(ok)
+    return out
+
+
+def phase_mesh(psfs, factors, pipe) -> dict:
+    """The in-process device mesh at full width (cases (a)-(h) of the
+    functions above), MESH_POSITIONS positions over the visible cards.
+    Prints one JSON line per case; returns the launches of zpass and
+    sl_rows in (a)'s counted lowrank run and of segtopk in (d)'s meshed
+    detection, and the shard-shape errors."""
+    from spim_registration_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("z",), (MESH_POSITIONS,), devices=mesh_devices())
+    devs = [str(d) for d in mesh.devices.flat]
+    prep = make_rl_prep(SHAPE, psfs, factors)   # (a), (b), (g)
+    results = {}
+    for name, fn, args in (
+            ("rl", mesh_rl, (prep, mesh)),
+            ("view_axis", mesh_view_axis, (prep,)),
+            ("ragged", mesh_ragged, (pipe,)),
+            ("detect", mesh_detect, (mesh,)),
+            ("fuse_register", mesh_fuse_register, (pipe, mesh)),
+            ("ooc", mesh_ooc, (prep, mesh)),
+            ("cli", mesh_cli, ())):
+        t0 = time.perf_counter()
+        results[name] = fn(*args)
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh", "case": name, "devices": devs,
+              "wall_s": time.perf_counter() - t0, **results[name]})
+    bad = [n for n, r in results.items()
+           if not all(c["ok"] for c in ([r] if "ok" in r else
+                                        [v for v in r.values()
+                                         if isinstance(v, dict)
+                                         and "ok" in v]))]
+    if bad:
+        raise AssertionError(f"phase mesh failed: {bad}")
+    rl = results["rl"]["lowrank"]
+    shard = rl["shard_kernels"]
+    return {"zpass": rl["launches"]["zpass"],
+            "sl_rows": rl["launches"]["sl_rows"],
+            "segtopk": results["detect"]["launches"]["mesh"]["segtopk"],
+            "errors": {"zpass": shard["zpass"]["max_abs_err"],
+                       "sl_rows": shard["sl_rows"]["max_abs_err"],
+                       "segtopk": results["detect"]["shard_segtopk"][
+                           "max_abs_err"]}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     alone = ap.add_mutually_exclusive_group()
@@ -2664,6 +3363,10 @@ def main() -> int:
                        help="the same for the fused Difference-of-Gaussian")
     alone.add_argument("--zfused-of", metavar="DIR",
                        help="the same for the fully fused lowrank conv")
+    alone.add_argument("--mesh-only", action="store_true",
+                       help="run only the card, build, pipeline and mesh "
+                            "phases of this checkout, without the result "
+                            "line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -2710,6 +3413,12 @@ def main() -> int:
     smi = timed("card", phase_card)
     timed("build", phase_build)
     psfs, factors = load_fixtures()
+    if args.mesh_only:
+        timed("mesh", phase_mesh, psfs, factors,
+              timed("pipeline", phase_pipeline))
+        emit({"phase": "walls", "seconds": walls,
+              "total_s": time.perf_counter() - t_start})
+        return 0
     counts, runner = timed("rl", phase_rl, psfs, factors)
     timed("profile", phase_profile, runner)
     kernels = timed("kernels", phase_kernels, runner)
@@ -2720,7 +3429,9 @@ def main() -> int:
     kernels["dog"] = timed("dog", phase_dog, vol)
     del vol
     timed("match", phase_match)
-    timed("pipeline", phase_pipeline)
+    pipe = timed("pipeline", phase_pipeline)
+    mesh = timed("mesh", phase_mesh, psfs, factors, pipe)
+    del pipe
     launches_timelapse = timed("timelapse", phase_timelapse)
     timed("small_vs_cpu", phase_small_vs_cpu)
     ooc, ooc_errs = timed("ooc", phase_ooc, psfs, factors)
@@ -2738,6 +3449,9 @@ def main() -> int:
         launches_timelapse["config5"]
     for name, n in launches_formats.items():
         kernels[name]["launches_formats"] = n
+    for name in ("zpass", "sl_rows", "segtopk"):
+        kernels[name]["launches_mesh"] = mesh[name]
+        kernels[name]["max_abs_err_mesh_shard"] = mesh["errors"][name]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
                                            "dog", "zfused")]})
     print(smi, flush=True)

@@ -35,9 +35,21 @@ registers one timepoint into `job_tp<N>.xml`; `cluster-merge` (host only)
 folds the job XMLs back into the master.
 zarr, n5, CZI and `.npy` need nothing beyond numpy; TIFF, MicroManager and
 DHM images need `imageio`, HDF5 needs `h5py`: without them those verbs
-exit with code 2 and name the package. The reference's multi-device
-options `--mesh` and `--multihost` are not ported: argparse refuses them
-(exit code 2). Nothing falls back to another path.
+exit with code 2 and name the package.
+
+`--mesh SPEC` (`auto`, `z=4`, `view=2,z=4`; `parallel.mesh_from_spec`)
+runs a stage on a device mesh of `--device`'s kind: `detect` (DoG and
+DoM, z-sharded per view), `register` (z-sharded detection, the matching
+batch's pair axis over the mesh), `fuse` (the output box z-sharded),
+`deconvolve` (psi z-sharded; a `view` axis runs the views data-parallel,
+which needs the parallel scheme; with `--out-of-core` the z-blocks go
+round the mesh) and `cluster-job`; `fuse --out-of-core` stays on one
+device and says so, and `tune` / `icp-refine` accept the option and run
+on one device, as in the reference. A mesh larger than the cards present
+exits 2 ("mesh needs N devices, have M"). The reference's `--multihost`
+(processes joined by `jax.distributed`) is not ported yet: argparse
+refuses it (exit code 2), and ROADMAP.md queues it as the next slice.
+Nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -102,6 +114,20 @@ def _dataset_with_loader(xml_path: str):
     else:
         ds.loader = tiff_stack_loader(base)
     return ds
+
+
+def _mesh_from_args(args):
+    """The stage's mesh from `--mesh` on `--device`'s kind, or None for
+    the single-device engines."""
+    from spim_registration_tpu_torch.parallel.mesh import mesh_from_spec
+
+    return mesh_from_spec(getattr(args, "mesh", None), args.device)
+
+
+def _single_device_note(args, verb: str, why: str) -> None:
+    if getattr(args, "mesh", None):
+        print(f"note: {verb} {why}; --mesh does not apply",
+              file=sys.stderr)
 
 
 def _load_config(args):
@@ -217,19 +243,28 @@ def cmd_detect(args):
 
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
+    mesh = _mesh_from_args(args)
     if args.method == "dom":
         from spim_registration_tpu_torch.detect.dom import detect_beads_dom
+        from spim_registration_tpu_torch.parallel.sharded_detect import (
+            sharded_detect_beads_dom,
+        )
 
         pstr = (f"DoM r1={cfg.dom.radius1} r2={cfg.dom.radius2} "
                 f"t={cfg.dom.threshold}")
         for vid in sorted(ds.views):
-            pts, resp = detect_beads_dom(ds.get_image(vid), cfg.dom,
-                                         device=args.device)
+            if mesh is not None:  # z-sharded DoM, never silently single
+                pts, resp = sharded_detect_beads_dom(
+                    ds.get_image(vid), cfg.dom, mesh,
+                    axis_name=mesh.axis_names[-1])
+            else:
+                pts, resp = detect_beads_dom(ds.get_image(vid), cfg.dom,
+                                             device=args.device)
             ds.set_interest_points(vid, cfg.label, pts, resp,
                                    parameters=pstr)
     else:
         detect_beads_dataset(ds, label=cfg.label, params=cfg.detection,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
     save_dataset(ds, args.xml)
     counts = {}
     for vid in sorted(ds.views):
@@ -252,6 +287,7 @@ def cmd_register(args):
     cfg = _load_config(args)
     rc = RegistrationConfig(detection=cfg.detection, pairwise=cfg.pairwise,
                             global_opt=cfg.global_opt)
+    mesh = _mesh_from_args(args)
     for tp in ds.timepoints():
         views = ds.views_of_timepoint(tp)
         if args.channel is not None:
@@ -264,10 +300,11 @@ def cmd_register(args):
         if all(cfg.label in v.interest_points for v in views):
             pts = [np.asarray(v.interest_points[cfg.label].points)
                    for v in views]
-            res = register_views(None, rc, points=pts, device=args.device)
+            res = register_views(None, rc, points=pts, device=args.device,
+                                 mesh=mesh)
         else:
             vols = [ds.get_image(v.view_id) for v in views]
-            res = register_views(vols, rc, device=args.device)
+            res = register_views(vols, rc, device=args.device, mesh=mesh)
         for v, vd in enumerate(views):
             vd.set_transform("registration", res.models[v])
         print(f"tp {tp}: residual mean={res.mean_error:.4f} "
@@ -352,13 +389,27 @@ def cmd_fuse(args):
     _require_h5py(args)
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
+    mesh = _mesh_from_args(args)
     for tp in ds.timepoints():
         views = ds.views_of_timepoint(tp)
         vols = [ds.get_image(v.view_id) for v in views]
         models = [v.model() for v in views]
         bbox = _resolve_bbox(ds, args, vols, models)
         if args.out_of_core:
+            if mesh is not None:
+                print("note: streaming fusion is disk-IO-bound and runs "
+                      "single-device by design (fuse/streaming.py); "
+                      "--mesh applies to the in-memory path only",
+                      file=sys.stderr)
             out = _fuse_out_of_core(args, cfg, tp, vols, models, bbox)
+        elif mesh is not None:
+            from spim_registration_tpu_torch.parallel import (
+                sharded_fuse_views,
+            )
+
+            out = sharded_fuse_views(vols, models, bbox, cfg.fusion,
+                                     mesh=mesh,
+                                     axis_name=mesh.axis_names[-1])
         else:
             out = fuse_views(vols, models, bbox, cfg.fusion,
                              device=args.device)
@@ -401,7 +452,6 @@ def _fuse_out_of_core(args, cfg, tp, vols, models, bbox):
 
 def cmd_deconvolve(args):
     from spim_registration_tpu_torch.deconv import (
-        deconvolve,
         extract_psf,
         prepare_views_for_deconvolution,
     )
@@ -409,6 +459,7 @@ def cmd_deconvolve(args):
     _require_h5py(args)
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
+    mesh = _mesh_from_args(args)
     for tp in ds.timepoints():
         views = ds.views_of_timepoint(tp)
         vols = [ds.get_image(v.view_id) for v in views]
@@ -426,20 +477,37 @@ def cmd_deconvolve(args):
         bbox = _resolve_bbox(ds, args, vols, models)
         if args.out_of_core:
             out = _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs,
-                                          bbox)
+                                          bbox, mesh)
         else:
             prep = prepare_views_for_deconvolution(vols, models, psfs, bbox,
                                                    device=args.device)
-            out = deconvolve(prep, cfg.deconvolution, device=args.device)
+            out = _deconvolve_in_memory(prep, cfg, args, mesh)
         if out is not None:
             _export_volume(args, ds, out, tp, bbox, "deconvolved")
 
 
-def _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs, bbox):
+def _deconvolve_in_memory(prep, cfg, args, mesh):
+    """RL on one device, or z-sharded over the mesh, where a "view" axis
+    before the last runs the views data-parallel (the parallel update
+    scheme)."""
+    from spim_registration_tpu_torch.deconv import deconvolve
+
+    if mesh is None:
+        return deconvolve(prep, cfg.deconvolution, device=args.device)
+    from spim_registration_tpu_torch.parallel import sharded_deconvolve
+
+    view_axis = "view" if "view" in mesh.axis_names[:-1] else None
+    return sharded_deconvolve(prep, cfg.deconvolution, mesh,
+                              axis_name=mesh.axis_names[-1],
+                              view_axis=view_axis)
+
+
+def _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs, bbox, mesh):
     """Out-of-core deconvolution: streamed prep (one source view resident
-    at a time) -> the disk-resident `BlockedDeconvolutionRunner`. Returns
-    the psi array for export, or None when `--out` ends in .raw (the psi
-    store is the output; volumes beyond memory are never materialized)."""
+    at a time) -> the disk-resident `BlockedDeconvolutionRunner` (its
+    z-blocks round the mesh when there is one). Returns the psi array for
+    export, or None when `--out` ends in .raw (the psi store is the
+    output; volumes beyond memory are never materialized)."""
     from spim_registration_tpu_torch.deconv.blocked import (
         BlockedDeconvolutionRunner,
     )
@@ -457,8 +525,8 @@ def _deconvolve_out_of_core(args, cfg, tp, vols, models, psfs, bbox):
                 else os.path.join(workdir, "psi.raw"))
     psi = RawVolumeStore(psi_path, bbox.shape, create=True)
     BlockedDeconvolutionRunner(inputs, psi, cfg.deconvolution,
-                               block_z=args.block_z,
-                               device=args.device).run()
+                               block_z=args.block_z, device=args.device,
+                               mesh=mesh).run()
     print(f"tp {tp}: out-of-core deconvolution done (psi at {psi_path})",
           file=sys.stderr)
     return None if raw_out else psi.read_block((0, 0, 0), bbox.shape)
@@ -510,6 +578,7 @@ def cmd_tune(args):
         sweep_detection,
     )
 
+    _single_device_note(args, "tune", "sweeps one view on one device")
     ds = _dataset_with_loader(args.xml)
     vid = tuple(args.view) if args.view else sorted(ds.views)[0]
     vol = ds.get_image(tuple(vid))
@@ -542,6 +611,7 @@ def cmd_icp_refine(args):
         icp_refine,
     )
 
+    _single_device_note(args, "icp-refine", "runs on one device")
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
     params = ICPParameters(max_distance=args.max_distance)
@@ -581,13 +651,15 @@ def cmd_cluster_job(args):
 
     cfg = _load_config(args)
     stages = args.stages.split(",")
+    mesh = _mesh_from_args(args)
 
     def process(ds, tp):
         ds.loader = _dataset_with_loader(args.xml).loader
         vids = [v.view_id for v in ds.views_of_timepoint(tp)]
         if "detect" in stages:
             detect_beads_dataset(ds, view_ids=vids, label=cfg.label,
-                                 params=cfg.detection, device=args.device)
+                                 params=cfg.detection, device=args.device,
+                                 mesh=mesh)
         if "register" in stages:
             views = ds.views_of_timepoint(tp)
             pts = [np.asarray(v.interest_points[cfg.label].points)
@@ -595,7 +667,8 @@ def cmd_cluster_job(args):
             rc = RegistrationConfig(detection=cfg.detection,
                                     pairwise=cfg.pairwise,
                                     global_opt=cfg.global_opt)
-            res = register_views(None, rc, points=pts, device=args.device)
+            res = register_views(None, rc, points=pts, device=args.device,
+                                 mesh=mesh)
             for v, vd in enumerate(views):
                 vd.set_transform("registration", res.models[v])
             print(f"tp {tp}: residual mean={res.mean_error:.4f} px")
@@ -676,6 +749,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--profile", metavar="DIR",
                         help="write a torch.profiler trace of this stage "
                              "into DIR")
+        sp.add_argument("--mesh", metavar="SPEC",
+                        help="run this stage on a device mesh of "
+                             "--device's kind: 'auto' (every card, z "
+                             "axis), 'z=4' or 'view=2,z=4'; default one "
+                             "device")
 
     sp = sub.add_parser("define",
                         help="define a dataset from files on disk")

@@ -33,7 +33,12 @@ Convolutions:
   schedule step = iteration + view, and conv2 runs in delta form, as in
   the in-memory engine.
 
-The reference's mesh grouping of blocks (`mesh=`) is not ported yet.
+With a `mesh` (`parallel.Mesh`), block k of each view-update runs on
+mesh position k % mesh.size (the reference's `_view_update_meshed` runs
+groups of `mesh.size` blocks as one sharded program): every block of a
+view-update reads the pre-update psi, so the blocks are independent and
+the result is the single-device loop's. The loop is the same one, with
+the same write-back pipeline; only each block's device changes.
 
 Stores: anything with `.shape`, `.read_block(lo, hi)`,
 `.write_block(lo, arr)` — `native_blocks.RawVolumeStore` (threaded
@@ -69,7 +74,7 @@ from spim_registration_tpu_torch.ops.separable import (
     decompose_for_rl,
     folded_conv_matrices,
 )
-from spim_registration_tpu_torch.utils.device import resolve_device
+from spim_registration_tpu_torch.utils.device import on_device, resolve_device
 
 
 class ArrayStore:
@@ -124,42 +129,64 @@ def _z_band_matrices(az: np.ndarray, n_out: int) -> np.ndarray:
     return T
 
 
-def _lowrank_stage_entries(kernels, n_out: int, yx, params, factors=None,
-                           device=None):
-    """Per-kernel lowrank entries for ONE conv stage of the blocked loop:
-    {"mat": (Tz, My, Mx), "rad": (rz, ry, rx)} with Tz the (R, n_out,
-    n_out + 2 rz) z band matrix over re-read halo rows and My/Mx the
+def _decompose(k, params, factors=None):
+    """`decompose_for_rl` at the RL engines' rank policy (adaptive rank up
+    to the escalated cap, no error limit): (az, ay, ax, rel_err)."""
+    return decompose_for_rl(
+        np.asarray(k, np.float64), params.psf_rank,
+        max_error=float("inf"), adapt_tol=params.psf_rank_tol,
+        rank_hard=params.psf_rank_hard, factors=factors)
+
+
+def _stage_matrices(az, ay, ax, n_out: int, yx, params, device=None):
+    """(Tz, My, Mx) for one kernel's CP factors: Tz the (R, n_out,
+    n_out + taps - 1) z band matrix over halo-extended rows, My/Mx the
     full-axis mirror-folded matrices, each with a leading dither-phase
-    axis — or None for kernels that miss `psf_rank_tol` at the escalated
-    cap (the caller gives those the exact per-block FFT path). Returns
-    (entries, rel_errs, z_tap_radii)."""
+    axis, in the matrix dtype on `device`."""
     dt = torch.bfloat16 if params.lowrank_dtype == "bfloat16" \
         else torch.float32
     phases = params.lowrank_dither_phases if dt == torch.bfloat16 else 1
     phases = max(int(phases), 1)
+    _, My, Mx = folded_conv_matrices(az, ay, ax, (1,) + tuple(yx),
+                                     dtype=np.float64)
+    triple = []
+    for M in (_z_band_matrices(az, n_out), My, Mx):
+        stack = (_bf16_dither_stack(M, phases) if phases > 1
+                 else np.asarray(M, np.float32)[None])
+        triple.append(torch.from_numpy(stack).to(device).to(dt))
+    return tuple(triple)
+
+
+def _lowrank_stage_entries(kernels, n_out: int, yx, params, factors=None,
+                           device=None):
+    """Per-kernel lowrank entries for ONE conv stage of the blocked loop:
+    {"mat": (Tz, My, Mx), "rad": (rz, ry, rx)} (`_stage_matrices`) — or
+    None for kernels that miss `psf_rank_tol` at the escalated cap (the
+    caller gives those the exact per-block FFT path). The z-sharded RL
+    engine (`parallel/sharded.py`) stages its shard convs here too.
+    Returns (entries, rel_errs, z_tap_radii)."""
     entries, errs, radii = [], [], []
     for i, k in enumerate(kernels):
         fac = factors[i] if factors is not None else None
-        az, ay, ax, err = decompose_for_rl(
-            np.asarray(k, np.float64), params.psf_rank,
-            max_error=float("inf"), adapt_tol=params.psf_rank_tol,
-            rank_hard=params.psf_rank_hard, factors=fac)
+        az, ay, ax, err = _decompose(k, params, fac)
         errs.append(float(err))
         if err > params.psf_rank_tol:
             entries.append(None)
             radii.append(0)
             continue
-        _, My, Mx = folded_conv_matrices(az, ay, ax, (1,) + tuple(yx),
-                                         dtype=np.float64)
-        triple = []
-        for M in (_z_band_matrices(az, n_out), My, Mx):
-            stack = (_bf16_dither_stack(M, phases) if phases > 1
-                     else np.asarray(M, np.float32)[None])
-            triple.append(torch.from_numpy(stack).to(device).to(dt))
         rads = tuple((f.shape[1] - 1) // 2 for f in (az, ay, ax))
-        entries.append({"mat": tuple(triple), "rad": rads})
+        entries.append({"mat": _stage_matrices(az, ay, ax, n_out, yx,
+                                               params, device),
+                        "rad": rads})
         radii.append(rads[0])
     return entries, errs, radii
+
+
+def _entry_to(entry: dict, dev: torch.device) -> dict:
+    """A kernel entry's tensors copied to `dev`."""
+    return {k: (tuple(t.to(dev) for t in val) if k == "mat"
+                else val.to(dev) if k == "fft" else val)
+            for k, val in entry.items()}
 
 
 def _conv_os(x: torch.Tensor, kfft: torch.Tensor, rz: int, ry: int, rx: int,
@@ -233,19 +260,24 @@ class BlockedDeconvolutionRunner:
     psi lives in `psi_store` (disk); each (view, block) update streams
     through the device. Matches `DeconvolutionRunner` seam-free and
     edge-exact for both conv backends, "fft" and "lowrank" (module
-    docstring). `device`: default CUDA; "cpu" runs on the host."""
+    docstring). `device`: default CUDA; "cpu" runs on the host. `mesh`:
+    block k runs on position k % mesh.size, whatever the mesh's axes
+    (module docstring; its devices replace `device`)."""
 
     def __init__(self, inputs: BlockedDeconvolutionInputs, psi_store,
                  params: DeconvolutionParameters = DeconvolutionParameters(),
                  block_z: Optional[int] = None, scratch_store=None,
-                 device=None):
+                 device=None, mesh=None):
         if params.conv_backend not in ("fft", "lowrank"):
             raise ValueError("blocked deconvolution supports "
                              "conv_backend 'fft' or 'lowrank'; got "
                              + params.conv_backend)
         if params.scheme != "sequential":
             raise ValueError("blocked deconvolution is OSEM-sequential")
-        self.device = dev = resolve_device(device)
+        # block k runs on self._devices[k % len(self._devices)]
+        self._devices = ([resolve_device(device)] if mesh is None
+                         else list(mesh.devices.flat))
+        self.device = dev = self._devices[0]
         self.inputs = inputs
         self.params = params
         self.psi_store = psi_store
@@ -302,6 +334,13 @@ class BlockedDeconvolutionRunner:
                 self.e1[v] = spectrum(inputs.psfs[v], self.fs1[v])
             if self.e2[v] is None:
                 self.e2[v] = spectrum(k2s[v], self.fs2[v])
+
+        # the entries on every device the blocks run on
+        self._entries = {dev: (self.e1, self.e2)}
+        for d in self._devices:
+            if d not in self._entries:
+                self._entries[d] = tuple([_entry_to(e, d) for e in es]
+                                         for es in (self.e1, self.e2))
 
         self.osem = (params.osem_factor if params.osem_factor is not None
                      else inputs.osem_factor)
@@ -372,12 +411,13 @@ class BlockedDeconvolutionRunner:
         return conv_lowrank_folded_fused(xp, Tz, My, Mx, rz, ry, rx,
                                          z_off=rz)
 
-    def _block_update(self, psi_ext, img_ext, w, v, step, z_lo):
+    def _block_update(self, psi_ext, img_ext, w, v, step, z_lo, dev):
         """One view's RL update for one z-slab block: psi_ext (bz + 2 hz,
         Y, X) with the global z edges mirror-read; y/x mirror boundaries
-        are applied locally, as the in-memory engine mirrors full axes."""
+        are applied locally, as the in-memory engine mirrors full axes.
+        The tensors lie on `dev`, one of the devices the blocks run on."""
         r1, r2 = self.r1[v], self.r2[v]
-        e1, e2 = self.e1[v], self.e2[v]
+        e1, e2 = (es[v] for es in self._entries[dev])
         conv1 = self._conv(psi_ext, e1, self.t1[v], step, self.hz - self.r2z,
                            r1[1], r1[2], self.fs1[v])
         q = torch.clamp(img_ext / torch.clamp(conv1, min=1e-12), 0.0, 1e4)
@@ -405,28 +445,27 @@ class BlockedDeconvolutionRunner:
         elif self.avg is None:
             self.avg = self._global_average()
         Z, Y, X = self.shape
-        dev = self.device
-
-        def load(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(dev)
-
-        wb = _WriteBack(dev, (self.bz, Y, X))
+        devs = self._devices
+        wb = _WriteBack(self.device, (self.bz, Y, X))
         src, dst = self.psi_store, self.scratch_store
         for it in range(n):
             for v in range(len(self.inputs.psfs)):
                 # halos read from SRC (the pre-update psi), updates go to
                 # DST: no block sees its predecessor's update
-                for lo, hi in self._blocks():
+                for k, (lo, hi) in enumerate(self._blocks()):
+                    dev = devs[k % len(devs)]
                     z0 = lo[0]
-                    psi_ext = load(read_mirror_z(
-                        src, z0 - self.hz, z0 + self.bz + self.hz))
-                    img_ext = load(read_mirror_z(
-                        self.inputs.image_stores[v],
-                        z0 - self.r2z, z0 + self.bz + self.r2z))
-                    w = load(self.inputs.weight_stores[v].read_block(lo, hi))
-                    out = self._block_update(psi_ext, img_ext, w, v, it + v,
-                                             z0 - self.r2z)
-                    wb.push(dst, lo, out)
+                    reads = (read_mirror_z(src, z0 - self.hz,
+                                           z0 + self.bz + self.hz),
+                             read_mirror_z(self.inputs.image_stores[v],
+                                           z0 - self.r2z,
+                                           z0 + self.bz + self.r2z),
+                             self.inputs.weight_stores[v].read_block(lo, hi))
+                    with on_device(dev):
+                        out = self._block_update(
+                            *(torch.from_numpy(a).to(dev) for a in reads),
+                            v, it + v, z0 - self.r2z, dev)
+                        wb.push(dst, lo, out)
                 wb.flush()
                 src, dst = dst, src
             if progress_fn is not None:

@@ -74,16 +74,16 @@ def effective_sigmas(params: DoGParameters) -> tuple:
     return (sz, s, s)
 
 
-def _detect_core(vol: torch.Tensor, params: DoGParameters):
-    """One view on its device: (pos (P, 3) full-res, val (P,), ok (P,),
-    cand_count)."""
-    v = vol.float()
+def dog_response(v: torch.Tensor, params: DoGParameters) -> torch.Tensor:
+    """The detection's response field of one view in v's dtype:
+    optional min/max normalization, optional downsampling, then the DoG
+    at the effective sigmas times the response scale 1/(k-1)."""
     if params.normalize:
         if params.min_intensity is not None \
                 and params.max_intensity is not None:
-            lo = torch.tensor(params.min_intensity, dtype=torch.float32,
+            lo = torch.tensor(params.min_intensity, dtype=v.dtype,
                               device=v.device)
-            hi = torch.tensor(params.max_intensity, dtype=torch.float32,
+            hi = torch.tensor(params.max_intensity, dtype=v.dtype,
                               device=v.device)
         else:
             lo = v.min()
@@ -103,9 +103,17 @@ def _detect_core(vol: torch.Tensor, params: DoGParameters):
     dog_fn = (difference_of_gaussian_bf16
               if params.conv_dtype == "bfloat16"
               else difference_of_gaussian)
-    dog = dog_fn(v, s1, s2) * np.float32(norm)
+    return dog_fn(v, s1, s2) * np.float32(norm)
+
+
+def _detect_core(vol: torch.Tensor, params: DoGParameters):
+    """One view on its device: (pos (P, 3) full-res, val (P,), ok (P,),
+    cand_count)."""
+    dog = dog_response(vol.float(), params)
     pos, val, ok, cand_count = find_peaks_localized(
         dog, params.threshold, params.max_peaks, params.find_minima)
+    factors = (params.downsample_z, params.downsample_xy,
+               params.downsample_xy)
     return upscale_coords(pos, factors), val, ok, cand_count
 
 
@@ -147,17 +155,34 @@ def detect_beads_batch(vols, params: DoGParameters = DoGParameters(),
 
 def detect_beads_dataset(dataset, view_ids=None, label: str = "beads",
                          params: DoGParameters = DoGParameters(),
-                         max_batch_views: int = 8, device=None) -> None:
+                         max_batch_views: int = 8, device=None,
+                         mesh=None) -> None:
     """Detect interest points in dataset views and store them as
     `InterestPoints` under `label` (the reference's `detect_beads_dataset`,
     stage 1 of the pipeline). Views are grouped by their declared shape;
     each group runs through `detect_beads_batch`, loading at most
     `max_batch_views` images at once. Views whose declared size is missing
-    or differs from the image go one at a time through `detect_beads`."""
+    or differs from the image go one at a time through `detect_beads`.
+
+    `mesh`: a `parallel.Mesh` routes each view through the z-sharded
+    detection engine (`parallel.sharded_detect_beads`, over the mesh's
+    last axis), one view at a time, on the mesh's devices."""
     if view_ids is None:
         view_ids = sorted(dataset.views)
     param_str = (f"DoG s={params.sigma} t={params.threshold} "
                  f"ds=xy{params.downsample_xy}/z{params.downsample_z}")
+    if mesh is not None:
+        from spim_registration_tpu_torch.parallel.sharded_detect import (
+            sharded_detect_beads,
+        )
+
+        for vid in view_ids:
+            pts, resp = sharded_detect_beads(
+                dataset.get_image(vid), params, mesh,
+                axis_name=mesh.axis_names[-1])
+            dataset.set_interest_points(vid, label, pts, resp,
+                                        parameters=param_str)
+        return
     by_shape: dict = {}
     for vid in view_ids:
         size = dataset.views[vid].size

@@ -2,8 +2,9 @@
 
 Port of the reference's `match/batched.py` (one vmapped program for all
 pairs): here the pair axis is the leading batch axis of the device
-functions in `match/pairwise.py`. The reference's `mesh` sharding of the
-pair axis waits for the multi-device port.
+functions in `match/pairwise.py`. With a `mesh` the pair axis is sharded
+over every mesh position, as in the reference: the bucket is rounded up
+to a multiple of the mesh size and each position matches its slots.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ def match_pairs_batched(
     params: PairwiseParameters = PairwiseParameters(),
     seed: int = 0,
     device=None,
+    mesh=None,
 ) -> Dict[Tuple[int, int], PairwiseResult]:
     """Match many view pairs in one batch on the device.
 
@@ -56,9 +58,14 @@ def match_pairs_batched(
       seed: slot k of the batch draws its RANSAC hypotheses from a
         generator seeded with `_slot_seed(seed, k)`.
       device: CUDA unless another device is named.
+      mesh: shard the pair axis over this `parallel.Mesh` (its devices
+        replace `device`): the bucket rounds up to a multiple of the mesh
+        size, which changes B and with it the reference's per-slot keys
+        (the port's slot seeds do not depend on B), and position i matches
+        slots [i B / n, (i + 1) B / n) on its device.
 
     Returns {pair: PairwiseResult} like repeated `match_pair` calls."""
-    dev = resolve_device(device)
+    dev = mesh.device(0) if mesh is not None else resolve_device(device)
     n = params.max_points
     V = len(points)
     padded = np.zeros((V, n, 3), np.float32)
@@ -69,6 +76,8 @@ def match_pairs_batched(
         valid[v, :m] = True
 
     B = _bucket_pairs(len(pairs))
+    if mesh is not None:  # the pair axis splits evenly over the mesh
+        B = -(-B // mesh.size) * mesh.size
     ia = np.zeros(B, np.int64)
     ib = np.zeros(B, np.int64)
     ia[:len(pairs)] = [p[0] for p in pairs]
@@ -78,8 +87,22 @@ def match_pairs_batched(
     va[len(pairs):] = False  # bucket-padding slots match nothing
     vb[len(pairs):] = False
     seeds = [_slot_seed(seed, k) for k in range(B)]
-    j, ok, res = _match_device(
-        seeds, torch.from_numpy(padded[ia]).to(dev),
-        torch.from_numpy(va).to(dev), torch.from_numpy(padded[ib]).to(dev),
-        torch.from_numpy(vb).to(dev), params)
-    return dict(zip(pairs, _results(j, ok, res, len(pairs))))
+    args = (padded[ia], va, padded[ib], vb)
+    if mesh is None:
+        j, ok, res = _match_device(
+            seeds, *(torch.from_numpy(a).to(dev) for a in args), params)
+        return dict(zip(pairs, _results(j, ok, res, len(pairs))))
+    from spim_registration_tpu_torch.parallel.mesh import shard_map
+
+    n = B // mesh.size
+
+    def f(p):
+        d = mesh.device(p)
+        sl = slice(p * n, (p + 1) * n)
+        return _match_device(
+            seeds[sl], *(torch.from_numpy(a[sl]).to(d) for a in args),
+            params)
+
+    # every position launched before the first result is read back
+    slots = [r for out in shard_map(f, mesh) for r in _results(*out, n)]
+    return dict(zip(pairs, slots))

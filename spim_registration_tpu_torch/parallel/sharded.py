@@ -1,0 +1,660 @@
+"""Sharded kernels on a device mesh: Gaussian / DoG, FFT convolution,
+fusion and the multi-view Richardson-Lucy engine.
+
+Port of the reference's `parallel/sharded.py`: volumes are z-sharded over
+a mesh axis; every convolution exchanges its PSF-support halo with the
+mesh neighbours (`halo_exchange_z`) and computes shard-locally, so psi
+never leaves its shards during RL. The reference traces one `shard_map`
+program; here every step runs at each position in turn
+(`mesh.shard_map`), and the shards cross positions only through
+`parallel/mesh.py`.
+
+The lowrank backend's z pass consumes each halo-extended shard through
+`conv_lowrank_folded_fused` with the z band matrix (R, zl, zl + 2 hz)
+centred at column `hz`: on a card it launches the hand-written kernels
+`zpass` (the band windows) and `sl_rows` (the mirror-folded y/x passes),
+on the CPU the same call takes their plain versions. The route follows
+the device alone, as in the out-of-core engine (`lowrank_fused` selects
+between the kernels and the plain chain only in the in-memory engine).
+
+Inputs are host arrays (or tensors); outputs are host arrays, except
+`device_result`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from spim_registration_tpu_torch.deconv.blocked import (
+    _decompose,
+    _entry_to,
+    _lowrank_stage_entries,
+    _stage_matrices,
+)
+from spim_registration_tpu_torch.deconv.lucy_richardson import (
+    _stack_factor_banks,
+    compound_kernels,
+)
+from spim_registration_tpu_torch.ops.fftconv import (
+    fft_shape_for,
+    prepare_kernel_fft,
+)
+from spim_registration_tpu_torch.ops.gaussian import (
+    conv_axis_valid,
+    gaussian_kernel_1d,
+    mirror_pad,
+)
+from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
+    conv_lowrank_folded_fused,
+)
+from spim_registration_tpu_torch.ops.separable import mirror_indices
+from spim_registration_tpu_torch.parallel.halo import halo_exchange_z
+from spim_registration_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather,
+    psum,
+    shard,
+    shard_map,
+)
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().astype(np.float32, copy=False)
+    return np.asarray(a, np.float32)
+
+
+def _per_device(mesh: Mesh, make) -> list:
+    """make(device) once per distinct device, listed per position."""
+    done = {}
+    for p in range(mesh.size):
+        dev = mesh.device(p)
+        if dev not in done:
+            done[dev] = make(dev)
+    return [done[mesh.device(p)] for p in range(mesh.size)]
+
+
+def _check_depth(Z: int, nz: int) -> None:
+    if Z % nz:
+        raise ValueError(f"volume depth {Z} does not split over a "
+                         f"{nz}-shard mesh axis")
+
+
+# ---------------------------------------------------------------- gaussian
+
+def _local_gaussian(xp: torch.Tensor, kernels, h: int) -> torch.Tensor:
+    """Blur a halo-extended shard (zl + 2h rows) to its zl interior rows."""
+    kz, ky, kx = kernels
+    rz = (kz.shape[0] - 1) // 2
+    if h > rz:  # trim excess halo so the valid conv lands on the interior
+        xp = xp[h - rz: xp.shape[0] - (h - rz)]
+    out = conv_axis_valid(xp, kz, 0)
+    out = conv_axis_valid(mirror_pad(out, (ky.shape[0] - 1) // 2, 1), ky, 1)
+    return conv_axis_valid(mirror_pad(out, (kx.shape[0] - 1) // 2, 2), kx, 2)
+
+
+def sharded_gaussian_blur(vol, sigmas, mesh: Mesh,
+                          axis_name: str = "z") -> np.ndarray:
+    """Separable Gaussian blur of a z-sharded volume (mirror boundary)."""
+    vol = _host(vol)
+    _check_depth(vol.shape[0], mesh.shape[axis_name])
+    ks_np = [gaussian_kernel_1d(float(s)) for s in sigmas]
+    h = (ks_np[0].shape[0] - 1) // 2
+    ks = _per_device(mesh, lambda d: [torch.as_tensor(k, device=d)
+                                      for k in ks_np])
+    xs = halo_exchange_z(shard(vol, mesh, (axis_name,)), h, mesh, axis_name)
+    out = shard_map(lambda p, xp, k: _local_gaussian(xp, k, h), mesh, xs, ks)
+    return gather(out, mesh, (axis_name,))
+
+
+def sharded_dog(vol, sigma1, sigma2, mesh: Mesh,
+                axis_name: str = "z") -> np.ndarray:
+    """Difference-of-Gaussian of a z-sharded volume."""
+    g1 = sharded_gaussian_blur(vol, (sigma1,) * 3, mesh, axis_name)
+    g2 = sharded_gaussian_blur(vol, (sigma2,) * 3, mesh, axis_name)
+    return g1 - g2
+
+
+# ---------------------------------------------------------------- fft conv
+
+def _local_fft_conv(xp: torch.Tensor, kfft: torch.Tensor, zl: int, h: int,
+                    ry: int, rx: int, fshape) -> torch.Tensor:
+    """Overlap-save convolution of a halo-extended shard, y/x mirror-padded
+    here: the zl interior rows. Circular wrap stays within the halo as
+    long as the kernel's z half-support is <= h."""
+    Y, X = xp.shape[1], xp.shape[2]
+    xp = mirror_pad(mirror_pad(xp, ry, 1), rx, 2)
+    xp = torch.nn.functional.pad(xp, (0, fshape[2] - xp.shape[2],
+                                      0, fshape[1] - xp.shape[1],
+                                      0, fshape[0] - xp.shape[0]))
+    out = torch.fft.irfftn(torch.fft.rfftn(xp) * kfft, s=tuple(fshape))
+    return out[h:h + zl, ry:ry + Y, rx:rx + X]
+
+
+def sharded_fft_convolve(vol, kernel, mesh: Mesh,
+                         axis_name: str = "z") -> np.ndarray:
+    """FFT-convolve a z-sharded volume with a small (replicated) kernel:
+    per-shard overlap-save over exchanged halos, mirror boundary.
+
+    A depth Z that does not split over the axis is extended by its own
+    mirror continuation to nz * ceil((Z + h) / nz) rows, so the rows near
+    the true bottom edge see the mirror data of the unsharded
+    convolution, and the extension is cropped. Kernel supports deeper
+    than a shard take multi-hop halos, up to h <= Z - 1."""
+    vol = _host(vol)
+    kernel = np.asarray(kernel, np.float32)
+    nz = mesh.shape[axis_name]
+    Z, Y, X = vol.shape
+    kz, ky, kx = kernel.shape
+    h = kz // 2
+    if h > Z - 1:
+        raise ValueError(f"kernel z support {kz} exceeds volume depth {Z}")
+    zl = -(-max(Z + h, nz) // nz) if Z % nz else Z // nz
+    Zp = zl * nz
+    if Zp != Z:
+        vol = vol[mirror_indices(Z, Zp - Z)[Zp - Z:]]
+    ry, rx = ky // 2, kx // 2
+    fshape = fft_shape_for((zl + 2 * h, Y + 2 * ry, X + 2 * rx))
+    kf = _per_device(mesh, lambda d: prepare_kernel_fft(
+        torch.as_tensor(kernel, device=d), fshape))
+    xs = halo_exchange_z(shard(vol, mesh, (axis_name,)), h, mesh, axis_name)
+    out = shard_map(lambda p, xp, k: _local_fft_conv(xp, k, zl, h, ry, rx,
+                                                     fshape), mesh, xs, kf)
+    return gather(out, mesh, (axis_name,))[:Z]
+
+
+# ---------------------------------------------------------------- fusion
+
+def sharded_fuse_views(volumes, models, bbox, params=None,
+                       mesh: Optional[Mesh] = None,
+                       axis_name: str = "z") -> np.ndarray:
+    """Weighted-average fusion with the OUTPUT box z-sharded over the mesh
+    (the reference's `FusionHelper` thread split as mesh positions).
+
+    Each position fuses its own output z-slab with the single-device
+    `fuse_views` chunk step (`_fuse_chunk`: one view after another into
+    the slab's accumulators); the views are replicated, the output rows
+    disjoint, so no shard exchanges anything. Ragged output depths pad
+    the slab grid and crop the extra rows."""
+    from spim_registration_tpu_torch.fuse.weighted_avg import (
+        FusionParameters,
+        _fuse_chunk,
+        _view_maps,
+    )
+
+    if params is None:
+        params = FusionParameters()
+    if mesh is None:
+        raise ValueError("sharded_fuse_views requires a mesh")
+    ds = params.downsample
+    out_shape = tuple(s // ds for s in bbox.shape)
+    if any(s == 0 for s in out_shape):
+        raise ValueError(f"empty bounding box {bbox}")
+    nz = mesh.shape[axis_name]
+    Z = out_shape[0]
+    zl = -(-Z // nz)
+    chunk_shape = (zl,) + out_shape[1:]
+    views = _per_device(mesh, lambda d: _view_maps(volumes, models, bbox,
+                                                   params, d))
+
+    def f(p, vws):
+        return _fuse_chunk(vws, mesh.index(p, axis_name) * zl, chunk_shape,
+                           params, mesh.device(p))
+
+    return gather(shard_map(f, mesh, views), mesh, (axis_name,))[:Z]
+
+
+# ------------------------------------------------------- lowrank (sharded)
+
+def _clamp_kernel_z(k, max_taps: int):
+    """Centre-crop a kernel's z support to `max_taps` (odd) and
+    renormalize (a copy of the reference's): the ragged-depth pad >= h
+    guarantee comes from the clamped kernel shape, so a PSF deeper than
+    2 * Zp - 1 is clamped before its decomposition. Returns (kernel,
+    clamped)."""
+    k = np.asarray(k)
+    if k.shape[0] <= max_taps:
+        return k, False
+    off = (k.shape[0] - max_taps) // 2
+    kc = k[off:off + max_taps].copy()
+    kc /= max(kc.sum(), 1e-12)
+    return kc, True
+
+
+def _sharded_lowrank_entries(kernels, zl, yx, params, mesh: Mesh, fft,
+                             factors=None, max_z_taps=None) -> list:
+    """Per-position lowrank entries of one conv stage: each kernel's z
+    support clamped to `max_z_taps`, then the blocked engine's
+    `_lowrank_stage_entries` with the z band over a halo-extended shard of
+    `zl` rows, staged on the first position's device and copied to the
+    others. A kernel that missed `psf_rank_tol` gets `fft(kernel, device)`,
+    the exact per-shard FFT entry."""
+    ks, facs = [], []
+    for i, k in enumerate(kernels):
+        fac = factors[i] if factors is not None else None
+        if max_z_taps is not None:
+            k, clamped = _clamp_kernel_z(k, max_z_taps)
+            if clamped:  # exact factors no longer match the clamped kernel
+                fac = None
+        ks.append(np.asarray(k, np.float32))
+        facs.append(fac)
+    entries, _, _ = _lowrank_stage_entries(ks, zl, yx, params, facs,
+                                           device=mesh.device(0))
+    return _per_device(mesh, lambda d: [
+        fft(k, d) if e is None else _entry_to(e, d)
+        for k, e in zip(ks, entries)])
+
+
+def _stacked_lowrank_matrices(kernels, zl, yx, params, factors=None):
+    """Stacked (across views) lowrank matrices for view-axis sharding:
+    per-view adaptive ranks bucketed to the largest by zero factor rows
+    (a zero row adds exactly 0) and taps zero-padded, centred, to a common
+    support, so (Tz, My, Mx) stack to (V, phases, R, n, p) host tensors
+    in the matrix dtype. Returns (triple, (rz, ry, rx)), or None if any
+    kernel misses `psf_rank_tol` at the escalated cap (the caller then
+    runs the exact FFT backend)."""
+    banks = []
+    for i, k in enumerate(kernels):
+        fac = factors[i] if factors is not None else None
+        az, ay, ax, err = _decompose(k, params, fac)
+        if err > params.psf_rank_tol:
+            return None
+        banks.append([az, ay, ax])
+    rmax = max(b[0].shape[0] for b in banks)
+    for d in range(3):
+        taps = max(b[d].shape[1] for b in banks)
+        for b in banks:
+            padt = taps - b[d].shape[1]
+            lo = padt // 2
+            b[d] = np.pad(b[d], ((0, rmax - b[d].shape[0]),
+                                 (lo, padt - lo)))
+    per_view = [_stage_matrices(*b, zl, yx, params) for b in banks]
+    rads = tuple((f.shape[1] - 1) // 2 for f in banks[0])
+    return tuple(torch.stack(s) for s in zip(*per_view)), rads
+
+
+# ---------------------------------------------------------------- deconv
+
+def _mirror_restore_z(xs: list, Z_true: int, hr: int, mesh: Mesh,
+                      axis_name: str) -> list:
+    """Re-pin the ragged mirror-extension rows (global z >= Z_true) to the
+    mirror continuation of the current data: row Z + d <- row Z - 2 - d.
+
+    Kept after every psi update and on every quotient before its conv, it
+    makes each conv's input window equal the unsharded engine's mirror
+    window, so the ragged-depth sharded RL is exact at the true bottom
+    edge. `hr` = max(1, 2 pad - zl + 1) reaches every source row
+    (multi-hop through `halo_exchange_z`)."""
+    zl = xs[0].shape[0]
+    xps = halo_exchange_z(xs, hr, mesh, axis_name)
+
+    def f(p, x, xp):
+        rows = _restore_rows(mesh.index(p, axis_name) * zl, zl, Z_true, hr,
+                             x.device)
+        if rows is None:
+            return x
+        out = x.clone()
+        out[rows[0]] = xp[rows[1]]
+        return out
+
+    return shard_map(f, mesh, xs, xps)
+
+
+@functools.lru_cache(maxsize=256)
+def _restore_rows(z0: int, zl: int, Z_true: int, hr: int,
+                  device: torch.device):
+    """A shard's rows at or past Z_true and the rows of its hr-extended
+    block that hold their mirror sources (row Z + d <- row Z - 2 - d), as
+    index tensors on `device` (cached: one host-to-device copy a shape);
+    None for a shard inside the true depth."""
+    g = z0 + np.arange(zl)
+    rows = np.nonzero(g >= Z_true)[0]
+    if rows.size == 0:
+        return None
+    li = np.clip(2 * Z_true - 2 - g[rows] - z0 + hr, 0, zl + 2 * hr - 1)
+    return (torch.as_tensor(rows, device=device),
+            torch.as_tensor(li, device=device))
+
+
+def sharded_deconvolve(prep, params, mesh: Mesh, axis_name: str = "z",
+                       view_axis: Optional[str] = None) -> np.ndarray:
+    """Multi-view RL with psi and the views z-sharded over the mesh.
+
+    One-shot convenience over `sharded_deconvolution_runner` (stage once,
+    run once): the math of `deconv.lucy_richardson.deconvolve`, with every
+    convolution per-shard over live halos. With `view_axis` (a second
+    mesh axis) the parallel update scheme runs views data-parallel: each
+    view shard convolves its views against the (view-replicated,
+    z-sharded) psi, and the update factor is summed over the view axis
+    (`psum`)."""
+    return sharded_deconvolution_runner(
+        prep, params, mesh, axis_name=axis_name, view_axis=view_axis)()
+
+
+def sharded_deconvolution_runner(prep, params, mesh: Mesh,
+                                 axis_name: str = "z",
+                                 view_axis: Optional[str] = None,
+                                 device_result: bool = False):
+    """Stage kernels and inputs on the mesh once and return a zero-arg
+    callable that runs the sharded RL iterations (the mesh counterpart of
+    `DeconvolutionRunner`'s staging / run split): repeated runs time the
+    iterations, not the host's kernel decomposition.
+
+    The callable returns psi (Z, Y, X) on the host, or with
+    `device_result` the list of per-position psi shards at the padded
+    depth (`execute.padded_depth`; the true depth is
+    `execute.true_depth`)."""
+    images = _host(prep.images)
+    weights = _host(prep.weights)
+    V, Z, Y, X = images.shape
+    nz = mesh.shape[axis_name]
+    scheme = params.scheme
+    if view_axis is not None and scheme != "parallel":
+        raise ValueError("view-axis sharding requires scheme='parallel' "
+                         "(sequential OSEM is inherently view-serial)")
+
+    k2s = compound_kernels(prep.psfs, params.psf_type)
+    raw = tuple(max(max(np.shape(p)[d] for p in prep.psfs),
+                    max(k.shape[d] for k in k2s)) for d in range(3))
+    raw = tuple(k if k % 2 else k + 1 for k in raw)
+
+    def _kshape(zloc):
+        # kernels may be deeper than a shard: halos are multi-hop and
+        # overlap-save needs only h <= Zp - 1 (the global mirror limit),
+        # so thin shards do not truncate the PSF
+        lim = (2 * nz * zloc - 1, 2 * Y - 1, 2 * X - 1)
+        return tuple(min(k, m) for k, m in zip(raw, lim))
+
+    # Ragged depths: mirror-extend the volume to Zp = nz * zl with a pad
+    # >= h, kept live by `_mirror_restore_z`. zl iterates to a fixpoint
+    # because the kernel clamp (2 Zp - 1) loosens as zl grows.
+    if Z % nz == 0:
+        zl, pad = Z // nz, 0
+    else:
+        zl = -(-Z // nz)
+        for _ in range(8):
+            zl_new = -(-(Z + _kshape(zl)[0] // 2) // nz)
+            if zl_new == zl:
+                break
+            zl = zl_new
+        pad = nz * zl - Z
+        if pad > Z - 1:
+            raise ValueError(
+                f"volume depth {Z} too thin to mirror-extend over a "
+                f"{nz}-shard mesh (needs {pad} mirror rows)")
+    kshape = _kshape(zl)
+
+    def _fit(k):
+        out = np.zeros(kshape, np.float32)
+        sl_src, sl_dst = [], []
+        for d in range(3):
+            if k.shape[d] <= kshape[d]:
+                off = (kshape[d] - k.shape[d]) // 2
+                sl_src.append(slice(0, k.shape[d]))
+                sl_dst.append(slice(off, off + k.shape[d]))
+            else:
+                off = (k.shape[d] - kshape[d]) // 2
+                sl_src.append(slice(off, off + kshape[d]))
+                sl_dst.append(slice(0, kshape[d]))
+        out[tuple(sl_dst)] = k[tuple(sl_src)]
+        return out / max(out.sum(), 1e-12)
+
+    h = kshape[0] // 2
+    ry, rx = kshape[1] // 2, kshape[2] // 2
+    fshape = fft_shape_for((zl + 2 * h, Y + 2 * ry, X + 2 * rx))
+    psfs = [np.asarray(p, np.float32) for p in prep.psfs]
+    factors = getattr(prep, "psf_factors", None)
+
+    def spectra(kernels):
+        """Per position: the FFT of each fitted kernel at fshape."""
+        fitted = [_fit(np.asarray(k, np.float32)) for k in kernels]
+        return _per_device(mesh, lambda d: [prepare_kernel_fft(
+            torch.as_tensor(k, device=d), fshape) for k in fitted])
+
+    backend = params.conv_backend
+    stacked = None
+    if backend == "lowrank" and view_axis is not None:
+        # view-axis lowrank: ranks bucketed so the matrices stack over the
+        # view axis; if any kernel misses the tolerance the whole job runs
+        # the exact FFT backend (accuracy is never silently reduced)
+        s1 = _stacked_lowrank_matrices(psfs, zl, (Y, X), params,
+                                       factors=factors)
+        s2 = _stacked_lowrank_matrices(k2s, zl, (Y, X), params)
+        if s1 is None or s2 is None:
+            backend = "fft"
+        else:
+            stacked = tuple(
+                (tuple(shard(M, mesh, (view_axis,), M.dtype) for M in trip),
+                 rads)
+                for trip, rads in (s1, s2))
+    if stacked is not None:
+        k1 = k2 = None
+    elif backend == "separable":
+        banks = [
+            _per_device(mesh, lambda d, ks=ks: _stack_factor_banks(
+                [_fit(np.asarray(k, np.float32)) for k in ks],
+                params.psf_rank, params.psf_rank_max_error, d))
+            for ks in (psfs, k2s)]
+        k1 = [[tuple(b[v] for b in bk) for v in range(V)]
+              for bk in banks[0]]
+        k2 = [[tuple(b[v] for b in bk) for v in range(V)]
+              for bk in banks[1]]
+    elif backend == "lowrank":
+        def fft_entry(k, d):
+            return {"fft": prepare_kernel_fft(
+                torch.as_tensor(_fit(k), device=d), fshape)}
+
+        k1 = _sharded_lowrank_entries(psfs, zl, (Y, X), params, mesh,
+                                      fft_entry, factors=factors,
+                                      max_z_taps=kshape[0])
+        k2 = _sharded_lowrank_entries(k2s, zl, (Y, X), params, mesh,
+                                      fft_entry, max_z_taps=kshape[0])
+    elif backend == "fft":
+        k1, k2 = spectra(psfs), spectra(k2s)
+    else:
+        raise ValueError(f"unknown conv_backend {backend!r}")
+
+    osem = float(np.float32(params.osem_factor
+                            if params.osem_factor is not None
+                            else prep.osem_factor))
+    lam = float(np.float32(params.tikhonov_lambda))
+    use_lam = params.tikhonov_lambda > 0
+    wsum = weights.sum(axis=0)
+    avg = float((images * weights).sum() / max(wsum.sum(), 1e-9))
+    psi0 = np.where(wsum > 1e-9, (images * weights).sum(axis=0)
+                    / np.maximum(wsum, 1e-9), avg).astype(np.float32)
+    psi0 = np.maximum(psi0, params.min_value * avg)
+    minv = float(np.float32(params.min_value * avg))
+    if pad:  # mirror-extend the data; weights 0 beyond Z (no signal)
+        images = np.pad(images, ((0, 0), (0, pad), (0, 0), (0, 0)),
+                        mode="reflect")
+        weights = np.pad(weights, ((0, 0), (0, pad), (0, 0), (0, 0)))
+        psi0 = np.pad(psi0, ((0, pad), (0, 0), (0, 0)), mode="reflect")
+    hr = max(1, 2 * pad - zl + 1) if pad else 0
+
+    psi_start = shard(psi0, mesh, (axis_name,))
+    imgs = shard(images, mesh, (view_axis, axis_name))
+    ws = shard(weights, mesh, (view_axis, axis_name))
+    del images, weights, psi0
+    Vl = imgs[0].shape[0]
+    # global view of local view u at position p (views split over the
+    # view axis, whole otherwise)
+    v0 = [mesh.index(p, view_axis) * Vl if view_axis is not None else 0
+          for p in range(mesh.size)]
+    n_iter = params.num_iterations
+
+    def each(fn, *shards):
+        return shard_map(fn, mesh, *shards)
+
+    def restore(xs):
+        if pad == 0:
+            return xs
+        return _mirror_restore_z(xs, Z, hr, mesh, axis_name)
+
+    def regularize(x):
+        if use_lam:
+            x = x / (1.0 + lam * x)
+        return torch.clamp(x, min=minv)
+
+    def fft_conv(xs, kf):
+        """kf: per position, the spectrum to apply there."""
+        xps = halo_exchange_z(xs, h, mesh, axis_name)
+        return each(lambda p, xp, k: _local_fft_conv(
+            xp, k, zl, h, ry, rx, fshape), xps, kf)
+
+    def sep_conv(xs, banks_):
+        """Sum-of-separable conv: the z pass over exchanged halo rows, the
+        y/x passes mirror-padded locally; factors flipped so the
+        correlation-style `conv_axis_valid` computes true convolution."""
+        hz = (banks_[0][0].shape[-1] - 1) // 2
+        xps = halo_exchange_z(xs, hz, mesh, axis_name)
+
+        def f(p, xp, bank):
+            az, ay, ax = (torch.flip(b, dims=(1,)) for b in bank)
+            total = None
+            for kz, ky, kx in zip(az, ay, ax):
+                out = conv_axis_valid(xp, kz, 0) if hz > 0 else xp * kz[0]
+                for axis, k in ((1, ky), (2, kx)):
+                    r = (k.shape[0] - 1) // 2
+                    out = (conv_axis_valid(mirror_pad(out, r, axis), k, axis)
+                           if r > 0 else out * k[0])
+                total = out if total is None else total + out
+            return total
+
+        return each(f, xps, banks_)
+
+    def mat_conv(xs, mats, rads):
+        """mats: per position the (Tz, My, Mx) of one phase; the band
+        matrix's half-support hz is the halo and the band offset."""
+        hz = (mats[0][0].shape[-1] - mats[0][0].shape[-2]) // 2
+        xps = halo_exchange_z(xs, hz, mesh, axis_name)
+        return each(lambda p, xp, m: conv_lowrank_folded_fused(
+            xp, *m, rad_z=hz, rad_y=rads[1], rad_x=rads[2], z_off=hz),
+            xps, mats)
+
+    def quotient(conv1, v):
+        """clip(img_v / conv1) at every position (v: local view)."""
+        return each(lambda p, img, c: torch.clamp(
+            img[v] / torch.clamp(c, min=1e-12), 0.0, 1e4), imgs, conv1)
+
+    def osem_update(psi, v, delta):
+        """Sequential: psi * (1 + osem * w_v * delta), regularized."""
+        return restore(each(lambda p, x, w, d: regularize(
+            x * (1.0 + osem * w[v] * d)), psi, ws, delta))
+
+    def parallel_update(psi, partial):
+        """Parallel: psi * (1 + the summed factor), regularized."""
+        return restore(each(lambda p, x, f: regularize(x * (1.0 + f)),
+                            psi, partial))
+
+    def add(acc, t):
+        return t if acc is None else each(lambda p, a, b: a + b, acc, t)
+
+    def run_lowrank(psi):
+        """z-sharded lowrank RL: unrolled per-view kernels with adaptive
+        ranks, the bf16 phase schedule (iteration + view), conv2 in delta
+        form K2 (x) (q - 1), exact-FFT entries where a kernel missed its
+        tolerance."""
+        mats = [e["mat"] for e in k1[0] + k2[0] if "mat" in e]
+        n_phases = mats[0][0].shape[0] if mats else 1
+
+        def conv(xs, ks, v, step):
+            e = ks[0][v]
+            if "fft" in e:
+                return fft_conv(xs, [k[v]["fft"] for k in ks])
+            ph = step % n_phases
+            return mat_conv(xs, [tuple(M[ph] for M in k[v]["mat"])
+                                 for k in ks], e["rad"])
+
+        def view_delta(p_, v, step):
+            q = restore(quotient(conv(p_, k1, v, step), v))
+            if "mat" in k2[0][v]:
+                return conv(each(lambda p, x: x - 1.0, q), k2, v, step)
+            return each(lambda p, c: c - 1.0, conv(q, k2, v, step))
+
+        for i in range(n_iter):
+            if scheme == "sequential":
+                for v in range(V):
+                    psi = osem_update(psi, v, view_delta(psi, v, i + v))
+            else:
+                factor = each(lambda p, x: torch.ones((), device=x.device),
+                              psi)
+                for v in range(V):
+                    factor = each(lambda p, f, w, d, v=v: f + w[v] * d,
+                                  factor, ws, view_delta(psi, v, i + v))
+                psi = restore(each(lambda p, x, f: regularize(x * f),
+                                   psi, factor))
+        return psi
+
+    def run_stacked(psi):
+        """View-axis lowrank RL on the (view, z) mesh: each view shard
+        convolves its views with its stacked matrices, and the parallel
+        update factor is summed over the view axis. The bf16 phase
+        advances per iteration here, the same for every view on every
+        shard (the z-only engine advances it per view-update)."""
+        (K1, rad1), (K2, rad2) = stacked
+        n_phases = K1[0][0].shape[1]
+
+        def conv(xs, K, rads, u, ph):
+            return mat_conv(xs, [tuple(M[u, ph] for M in trip)
+                                 for trip in zip(*K)], rads)
+
+        for i in range(n_iter):
+            ph = i % n_phases
+            partial = None
+            for u in range(Vl):
+                q = restore(quotient(conv(psi, K1, rad1, u, ph), u))
+                d = conv(each(lambda p, x: x - 1.0, q), K2, rad2, u, ph)
+                partial = add(partial, each(
+                    lambda p, w, dd, u=u: w[u] * dd, ws, d))
+            psi = parallel_update(psi, psum(partial, mesh, view_axis))
+        return psi
+
+    def run_plain(psi):
+        """FFT or separable backend."""
+        def conv(xs, ks, u):
+            local = [ks[p][v0[p] + u] for p in range(mesh.size)]
+            if backend == "separable":
+                return sep_conv(xs, local)
+            return fft_conv(xs, local)
+
+        def conv2(p_, u):
+            q = restore(quotient(conv(p_, k1, u), u))
+            return conv(q, k2, u)
+
+        for _ in range(n_iter):
+            if scheme == "parallel":
+                partial = None
+                for u in range(Vl):
+                    partial = add(partial, each(
+                        lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
+                        conv2(psi, u)))
+                if view_axis is not None:
+                    partial = psum(partial, mesh, view_axis)
+                psi = parallel_update(psi, partial)
+            else:
+                for v in range(V):
+                    psi = osem_update(psi, v, each(
+                        lambda p, c: c - 1.0, conv2(psi, v)))
+        return psi
+
+    if stacked is not None:
+        engine = run_stacked
+    elif backend == "lowrank":
+        engine = run_lowrank
+    else:
+        engine = run_plain
+
+    def execute():
+        out = engine(psi_start)
+        if device_result:
+            return out
+        return gather(out, mesh, (axis_name,))[:Z]
+
+    execute.true_depth = Z
+    execute.padded_depth = nz * zl
+    return execute

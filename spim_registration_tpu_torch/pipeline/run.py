@@ -68,6 +68,7 @@ def register_views(
     initial_models: Optional[Sequence[np.ndarray]] = None,
     points: Optional[Sequence[np.ndarray]] = None,
     device=None,
+    mesh=None,
 ) -> RegistrationResult:
     """Register N views: detect -> pairwise match -> global solve.
 
@@ -80,8 +81,12 @@ def register_views(
       points: pre-detected per-view interest points (skips detection).
       device: where detection, matching and the solve's device assembly
         run: CUDA unless another device is named.
+      mesh: a `parallel.Mesh`: detection runs z-sharded over its last axis
+        (`parallel.sharded_detect_beads`) and batched matching shards its
+        pair axis over every position; the single-pair match, the
+        fallback matches and the solve run on the mesh's first device.
     """
-    dev = resolve_device(device)
+    dev = mesh.device(0) if mesh is not None else resolve_device(device)
     V = len(volumes) if volumes is not None else len(points)
     timings: Dict[str, float] = {}
     ident = np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)
@@ -92,7 +97,15 @@ def register_views(
     if points is None:
         points = []
         for i, vol in enumerate(volumes):
-            pts, _ = detect_beads(vol, config.detection, device=dev)
+            if mesh is not None:
+                from spim_registration_tpu_torch.parallel.sharded_detect \
+                    import sharded_detect_beads
+
+                pts, _ = sharded_detect_beads(
+                    np.asarray(vol), config.detection, mesh,
+                    axis_name=mesh.axis_names[-1])
+            else:
+                pts, _ = detect_beads(vol, config.detection, device=dev)
             logger.info("detect view=%d points=%d", i, len(pts))
             points.append(pts)
     else:
@@ -117,7 +130,8 @@ def register_views(
 
     if len(pairs) > 1:
         pair_results = match_pairs_batched(cal_points, pairs,
-                                           config.pairwise, device=dev)
+                                           config.pairwise, device=dev,
+                                           mesh=mesh)
     else:
         pair_results = {
             (i, j): match_pair(cal_points[i], cal_points[j],

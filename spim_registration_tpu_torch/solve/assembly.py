@@ -8,12 +8,13 @@ solve would not repeat bit for bit. Here the assembly is deterministic:
 each match's Jacobian rows are lifted into the free-parameter columns with
 one-hot tile matrices, J (N*3, n_free*P), and H = J^T W J, g = J^T W r0 are
 two matrix products. `n_free` <= views - 1 and P <= 12, so J has at most
-84 columns for 8 views. The reference's sharded form waits for the
-multi-device port.
+84 columns for 8 views. `assemble_normal_equations_sharded` splits the
+matches over a mesh axis and sums the per-shard (H, g) (`mesh.psum`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _PARAMS = {"translation": 3, "rigid": 6, "affine": 12}
@@ -73,3 +74,33 @@ def assemble_normal_equations(model: str, n_free: int, pc: torch.Tensor,
     r0 = (pc - qc).reshape(-1)
     JW = J * w.repeat_interleave(3)[:, None]
     return JW.T @ J, JW.T @ r0
+
+
+def assemble_normal_equations_sharded(mesh, axis: str, model: str,
+                                      n_free: int, pc, qc, w, col_i, col_j):
+    """Assembly over a mesh: the matches split over `axis` (rows padded to
+    a multiple of its size with weight 0, which adds nothing), each shard
+    assembled on its device and (H, g) summed over the axis (`psum`).
+    Inputs are host arrays; returns (H, g) on the device of the mesh's
+    first position."""
+    from spim_registration_tpu_torch.parallel.mesh import (
+        psum,
+        shard,
+        shard_map,
+    )
+
+    pad = (-len(pc)) % mesh.shape[axis]
+
+    def padded(a, fill=0):
+        a = np.asarray(a)
+        return np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1),
+                      constant_values=fill)
+
+    f32 = [shard(padded(a), mesh, (axis,)) for a in (pc, qc, w)]
+    cols = [shard(padded(c, -1), mesh, (axis,), torch.int64)
+            for c in (col_i, col_j)]
+    parts = shard_map(lambda p, *a: assemble_normal_equations(
+        model, n_free, *a), mesh, *f32, *cols)
+    H = psum([hg[0] for hg in parts], mesh, axis)
+    g = psum([hg[1] for hg in parts], mesh, axis)
+    return H[0], g[0]

@@ -10,6 +10,7 @@ without being asked to.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -28,6 +29,14 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the host")
         set_exact_float32()
     return dev
+
+
+def on_device(dev: torch.device):
+    """The context work on `dev` runs in: its card current on CUDA (the
+    hand-written kernels launch on the current device's stream)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 @functools.lru_cache(maxsize=None)

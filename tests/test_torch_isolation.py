@@ -126,7 +126,9 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "pipeline.timelapse", "pipeline.cluster", "utils.log",
                 "utils.profiling", "core.define", "core.czi",
                 "core.micromanager", "core.dhm", "core.zarr_store",
-                "core.resave")
+                "core.resave", "parallel", "parallel.mesh",
+                "parallel.halo", "parallel.sharded",
+                "parallel.sharded_detect")
 
 _IMPORT_NEW = r"""
 import importlib, sys
@@ -309,6 +311,23 @@ def test_out_of_core_and_extras_refuse_to_run_without_cuda(monkeypatch,
             lambda: suggest_threshold(vol)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_mesh_refuses_to_run_without_cuda(monkeypatch):
+    """A mesh over the cards (the default) raises without one; the CPU
+    has to be named, as for every entry point."""
+    from spim_registration_tpu_torch.parallel import (
+        make_mesh,
+        mesh_from_spec,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_mesh(), lambda: make_mesh(("z",), (1,)),
+                 lambda: mesh_from_spec("z=2"),
+                 lambda: mesh_from_spec("auto", "cuda")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert mesh_from_spec("z=2", "cpu").shape == {"z": 2}
 
 
 def test_kernel_sources_present():
@@ -644,6 +663,49 @@ def test_lowrank_runner_on_cuda():
             params, lowrank_fused=False), device="cuda").run()
         d = (got.double() - chain.double()).pow(2).mean().sqrt()
         assert float(d / (chain.max() - chain.min())) <= tol, shape
+
+
+@pytest.mark.cuda
+def test_sharded_lowrank_on_cuda():
+    """The z-sharded lowrank RL on a mesh of one card at two positions
+    (ragged depth 37 -> shards of 19 with mirror rows) launches zpass and
+    sl_rows on every shard conv, keeps every shard on the card, and
+    agrees with the same mesh on the host (bf16 rounding flips)."""
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.convert import views_from_numpy
+    from spim_registration_tpu_torch.deconv import (
+        DeconvolutionParameters,
+        gaussian_psf,
+    )
+    from spim_registration_tpu_torch.parallel import (
+        make_mesh,
+        sharded_deconvolution_runner,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    psfs = [gaussian_psf((9, 9, 9), (2.0, 1.0, 1.4)),
+            gaussian_psf((9, 9, 9), (1.0, 1.3, 2.0))]
+    imgs = rng.random((2, 37, 40, 48)).astype(np.float32) + 0.1
+    prep = views_from_numpy(imgs, np.full(imgs.shape, 0.5, np.float32),
+                            psfs, 2.0, device="cpu")
+    params = DeconvolutionParameters(num_iterations=2,
+                                     conv_backend="lowrank", psf_rank=8,
+                                     psf_rank_tol=1e-3)
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_mesh(("z",), (2,), devices=[dev, dev])
+        n0 = lc.zpass.launches, lc.sl_rows.launches
+        shards = sharded_deconvolution_runner(prep, params, mesh,
+                                              device_result=True)()
+        torch.cuda.synchronize()
+        assert all(s.device == torch.device(dev) for s in shards)
+        launched = (lc.zpass.launches - n0[0], lc.sl_rows.launches - n0[1])
+        # 2 iterations x 2 views x 2 convs x 2 shards
+        assert launched == ((16, 16) if dev != "cpu" else (0, 0)), launched
+        out[dev] = torch.cat([s.cpu() for s in shards])[:37].numpy()
+    d = np.sqrt(np.mean((out["cuda:0"] - out["cpu"]) ** 2))
+    assert d / (out["cpu"].max() - out["cpu"].min()) <= 1e-3
 
 
 @pytest.mark.cuda
