@@ -7,6 +7,7 @@
     python3 chip_smoke.py --segtopk-of DIR # the segment top-k alone
     python3 chip_smoke.py --dog-of DIR     # the fused DoG alone
     python3 chip_smoke.py --zfused-of DIR  # the fully fused lowrank conv
+    python3 chip_smoke.py --multihost-only # phase multihost alone
 
 Drives the port (`spim_registration_tpu_torch`, never JAX or the JAX
 package) and exits nonzero on any failure:
@@ -107,6 +108,21 @@ package) and exits nonzero on any failure:
    on the mesh at 4 x 256^3 x 2 iterations; (h) the CLI verbs with
    `--mesh z=1` (and `z=N` on N > 1 cards; on one card `--mesh z=2` must
    exit 2) against the same verbs without it.
+14. two processes joined by `torch.distributed` (`phase_multihost`,
+   after the mesh phase): `python3 chip_smoke.py --multihost-worker RANK
+   2 PORT DIR` twice, each with 2 positions on its card, so (a) the RL
+   main path (lowrank, then (c) FFT) runs on phase mesh's 4 shards
+   across a process boundary; (b) the ("host", "z") mesh of
+   `host_z_mesh(2)` with the views data-parallel across the processes;
+   (d) the detection configuration through `detect_beads_dataset(mesh=)`;
+   (e) `sharded_fuse_views` on the pipeline scene's box; each against the
+   same mesh on one process and the in-memory engines, with the route
+   (gloo through the host where the processes share a card; a second run
+   with one card a worker, NCCL, where there are two), each worker's
+   launches and walls, and the bytes and host seconds of the
+   cross-process hops; then (f) the CLI's `detect`, `register` and
+   `deconvolve --multihost` as two processes against the same verbs
+   without it, process 1 printing and writing nothing.
 
 Each phase prints one JSON line, and a `walls` line gives every phase's
 wall; then a `kernels` JSON line, the nvidia-smi line, and last
@@ -120,7 +136,8 @@ the segment top-k, `--dog-of DIR` the fused DoG
 conv (`zfused_alone`), without the result line: to compare two
 checkouts, run parent, change, change, parent in one call.
 `--mesh-only` runs the card, build, pipeline and mesh phases of this
-checkout, without the result line.
+checkout, without the result line, and `--multihost-only` the card,
+build, pipeline and multihost phases.
 """
 
 from __future__ import annotations
@@ -2908,31 +2925,44 @@ def _nearest(a: np.ndarray, b: np.ndarray) -> float:
     return float(d.min(axis=1).max())
 
 
+def detect_views() -> dict:
+    """Phase detect's 8 views: the detection volume, each with its own
+    noise (seed 11)."""
+    vol = detection_volume()
+    rng = np.random.default_rng(11)
+    return {(0, s): vol + rng.normal(0, 1e-4, vol.shape).astype(np.float32)
+            for s in range(DETECT_VIEWS)}
+
+
+def views_dataset(views: dict):
+    """A dataset of in-memory views of SHAPE (the loader reads `views`)."""
+    from spim_registration_tpu_torch.core.dataset import (
+        Dataset,
+        ViewDescription,
+    )
+
+    ds = Dataset(base_path=str(ROOT))
+    for vid in views:
+        ds.views[vid] = ViewDescription(view_id=vid, size=SHAPE)
+    ds.loader = views.__getitem__
+    return ds
+
+
 def mesh_detect(mesh) -> dict:
     """(d) phase detect's 8 views through `detect_beads_dataset(mesh=...)`
     against the single-device engine: the same counts, every point within
     MESH_DETECT_PX of one of the other's; segtopk held against its plain
     version, exactly, on the first shard's field."""
-    from spim_registration_tpu_torch.core.dataset import (
-        Dataset,
-        ViewDescription,
-    )
     from spim_registration_tpu_torch.detect import DoGParameters
     from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
     from spim_registration_tpu_torch.ops import extrema
     from spim_registration_tpu_torch.ops.kernels import segtopk as st
 
-    vol = detection_volume()
-    rng = np.random.default_rng(11)
-    views = {(0, s): vol + rng.normal(0, 1e-4, vol.shape).astype(np.float32)
-             for s in range(DETECT_VIEWS)}
+    views = detect_views()
     params = DoGParameters(sigma=1.8, threshold=0.004)
     pts, walls, launches = {}, {}, {}
     for name, kw in (("single", {}), ("mesh", {"mesh": mesh})):
-        ds = Dataset(base_path=str(ROOT))
-        for vid in views:
-            ds.views[vid] = ViewDescription(view_id=vid, size=SHAPE)
-        ds.loader = views.__getitem__
+        ds = views_dataset(views)
         if name == "mesh":
             with capture_first(extrema, "segment_topk") as cap:
                 detect_beads_dataset(ds, view_ids=[(0, 0)], params=params,
@@ -3346,6 +3376,507 @@ def phase_mesh(psfs, factors, pipe) -> dict:
                            "max_abs_err"]}}
 
 
+
+# phase multihost: two processes joined by torch.distributed, each driving
+# MH_LOCAL positions on its card(s), so the mesh of (a), (c), (d) and (e)
+# has phase mesh's 4 positions across a process boundary. The limits: (a)
+# against the in-memory runner MH_RL_TOL (the one-process mesh measured
+# 2.358e-5 on an H100; the blocked engine 2.18e-5), every case against the
+# same mesh on one process MH_MESH_TOL x max (the cross-process steps move
+# data and add no arithmetic), (d) peak sets identical, the CLI as phase
+# mesh (h) holds its verbs (1e-3 px or a witnessed f32 tie, 1e-5,
+# MESH_CLI_DECONV_TOL)
+MH_WORLD = 2
+MH_LOCAL = 2
+MH_RL_TOL = 5e-5
+MH_MESH_TOL = 1e-6
+MH_VIEW_ITERS = 1
+MH_CLI_ITERS = 3
+MH_TIMEOUT_S = 600
+MH_REDUCED = ["(b) the float32 view axis: 20 -> 1 iteration (the time "
+              "limit: 2 iterations took 9.6 s in each worker, NVIDIA "
+              "H100 80GB HBM3, 700.00 W)"]
+# how a worker is started (the script itself), and the port's CLI
+MH_WORKER = [sys.executable, str(Path(__file__).resolve())]
+MH_CLI = [sys.executable, "-m", "spim_registration_tpu_torch.cli"]
+
+
+def mh_device() -> torch.device:
+    """A worker's card: the first it sees (one card each on the NCCL run,
+    where CUDA_VISIBLE_DEVICES gives each worker its own)."""
+    return torch.device("cuda", 0)
+
+
+def mh_cases(mesh, hz, prep, fuse_in, timed_runs: int, save) -> dict:
+    """Cases (a)-(e) on a z mesh `mesh` and a ("host", "z") mesh `hz`;
+    `save(name, array)` keeps each result. Returns walls and launches."""
+    from spim_registration_tpu_torch.detect import DoGParameters
+    from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
+    from spim_registration_tpu_torch.fuse import FusionParameters
+    from spim_registration_tpu_torch.parallel import (
+        multihost,
+        sharded_deconvolution_runner,
+        sharded_deconvolve,
+        sharded_fuse_views,
+    )
+    from spim_registration_tpu_torch.parallel.mesh import gather
+
+    info = {}
+    for case, backend, runs in (("a", "lowrank", timed_runs),
+                                ("c", "fft", 1)):
+        run = sharded_deconvolution_runner(prep, rl_params(backend, N_ITER),
+                                           mesh, device_result=True)
+        sync_wall(run)                              # warm-up
+        before = dict(multihost.traffic)
+        reset_launches()
+        shards, wall = sync_wall(run)
+        launches = read_launches()
+        hops = {k: multihost.traffic[k] - before[k] for k in before}
+        walls = [wall] + [sync_wall(run)[1] for _ in range(runs - 1)]
+        save(case, gather(shards, mesh, ("z",))[:SHAPE[0]])
+        info[case] = {"launches": launches, "walls_s": walls,
+                      "wall": wall_spread(walls), "hops": hops}
+        del run, shards
+        torch.cuda.empty_cache()
+    params = dataclasses.replace(rl_params("lowrank", MH_VIEW_ITERS),
+                                 scheme="parallel", lowrank_dtype="float32")
+    reset_launches()
+    got, wall = sync_wall(lambda: sharded_deconvolve(
+        prep, params, hz, axis_name="z", view_axis="host"))
+    save("b", got)
+    info["b"] = {"launches": read_launches(), "wall_s": wall,
+                 "iters": MH_VIEW_ITERS}
+    ds = views_dataset(detect_views())
+    reset_launches()
+    _, wall = sync_wall(lambda: detect_beads_dataset(
+        ds, params=DoGParameters(sigma=1.8, threshold=0.004), mesh=mesh))
+    info["d"] = {"launches": read_launches(), "wall_s": wall}
+    for vid, vd in sorted(ds.views.items()):
+        save(f"d_{vid[1]}", np.asarray(vd.interest_points["beads"].points))
+    got, wall = sync_wall(lambda: sharded_fuse_views(
+        fuse_in["volumes"], fuse_in["models"], fuse_in["bbox"],
+        FusionParameters(), mesh=mesh))
+    save("e", got)
+    info["e"] = {"wall_s": wall}
+    return info
+
+
+def mh_fuse_inputs(d: str) -> dict:
+    """The pipeline scene's views, registered models and box, as the
+    parent stored them for the workers."""
+    from spim_registration_tpu_torch.core.dataset import BoundingBox
+
+    z = np.load(os.path.join(d, "fuse_in.npz"))
+    return {"volumes": [np.load(os.path.join(d, f"fuse_view{v}.npy"),
+                                mmap_mode="r") for v in range(N_VIEWS)],
+            "models": list(z["models"]),
+            "bbox": BoundingBox("b", tuple(int(v) for v in z["lo"]),
+                                tuple(int(v) for v in z["hi"]))}
+
+
+def multihost_worker(rank: int, world: int, port: int, d: str) -> None:
+    """One process of phase multihost: joins the group on localhost:port,
+    loads the kernels phase build built, runs `mh_cases` on the mesh of
+    world x MH_LOCAL positions, writes its results into DIR and prints
+    one JSON line (route, walls, launches, the cross-process bytes and
+    seconds)."""
+    from spim_registration_tpu_torch.ops.kernels import build
+    from spim_registration_tpu_torch.parallel import (
+        host_z_mesh,
+        initialize_multihost,
+        multihost,
+    )
+    from spim_registration_tpu_torch.parallel.mesh import make_mesh
+    from spim_registration_tpu_torch.utils.device import set_exact_float32
+
+    missing = [n for n in build.SOURCES if not build._target(n).exists()]
+    if missing:
+        raise RuntimeError(f"kernels not built before the workers: {missing}")
+    set_exact_float32()
+    t0 = time.perf_counter()
+    route = initialize_multihost(f"localhost:{port}", world, rank)
+    join_s = time.perf_counter() - t0
+    dev = mh_device()
+    mesh = make_mesh(("z",), (world * MH_LOCAL,), devices=[dev] * MH_LOCAL)
+    hz = host_z_mesh(MH_LOCAL, device=dev)
+    psfs, factors = load_fixtures()
+    prep = make_rl_prep(SHAPE, psfs, factors)
+
+    def save(name, a):
+        if rank == 0 or name == "a":   # (a) from both: every process
+            np.save(os.path.join(d, f"{name}_rank{rank}.npy"), a)
+
+    info = mh_cases(mesh, hz, prep, mh_fuse_inputs(d), MESH_WALL_RUNS, save)
+    line = {"worker": rank, "route": route, "join_s": join_s,
+            "positions": mesh.local_positions,
+            "devices": [str(mesh.device(p)) for p in mesh.local_positions],
+            "wall_s": time.perf_counter() - t0, **info}
+    multihost.shutdown_multihost()
+    emit(line)
+
+
+def mh_spawn(argvs, envs, timeout: float = MH_TIMEOUT_S) -> list:
+    """Start one process per argv at once from the checkout's root; the
+    outputs, or AssertionError when any fails or times out (every one is
+    killed then)."""
+    procs = [subprocess.Popen(a, env=e, cwd=str(ROOT), text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for a, e in
+             zip(argvs, envs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"a process timed out after {timeout} s: "
+                             f"{argvs}")
+    for a, p, o in zip(argvs, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{a} exited {p.returncode}:\n{o[-3000:]}")
+    return outs
+
+
+def mh_env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mh_references(psfs, factors, pipe, fuse_in) -> dict:
+    """The one-process results the workers are held against: the in-memory
+    runner and the same mesh on this process (positions on
+    `mesh_devices`), for every case."""
+    from spim_registration_tpu_torch.deconv import DeconvolutionRunner
+    from spim_registration_tpu_torch.parallel import make_mesh
+
+    prep = make_rl_prep(SHAPE, psfs, factors)
+    mesh = make_mesh(("z",), (MH_WORLD * MH_LOCAL,),
+                     devices=mesh_devices(MH_WORLD * MH_LOCAL))
+    hz = make_mesh(("host", "z"), (MH_WORLD, MH_LOCAL),
+                   devices=mesh_devices(MH_WORLD * MH_LOCAL))
+    ref = {}
+    info = mh_cases(mesh, hz, prep, fuse_in, 1,
+                    lambda name, a: ref.__setitem__(name, np.asarray(a)))
+    for case, params in (
+            ("a", rl_params("lowrank", N_ITER)),
+            ("c", rl_params("fft", N_ITER)),
+            ("b", dataclasses.replace(rl_params("lowrank", MH_VIEW_ITERS),
+                                      scheme="parallel",
+                                      lowrank_dtype="float32"))):
+        ref["mem_" + case] = DeconvolutionRunner(prep, params).run() \
+            .cpu().numpy()
+    ref["info"] = info
+    ref["fused"] = pipe["fused"]
+    del prep
+    torch.cuda.empty_cache()
+    return ref
+
+
+def mh_check(d: str, ref: dict, workers: list) -> dict:
+    """The workers' results against `mh_references`."""
+    def load(name, rank=0):
+        return np.load(os.path.join(d, f"{name}_rank{rank}.npy"))
+
+    def vs_mesh(got, want):
+        err = float(np.abs(got - want).max())
+        return {"max_abs_err_vs_one_process": err,
+                "tol": MH_MESH_TOL * float(np.abs(want).max()),
+                "ok": bool(err <= MH_MESH_TOL * np.abs(want).max())}
+
+    out = {}
+    for case in ("a", "b", "c"):
+        gots = [load(case, r) for r in range(MH_WORLD)] if case == "a" \
+            else [load(case)]
+        c = vs_mesh(gots[0], ref[case])
+        c["same_on_every_process"] = all(np.array_equal(g, gots[0])
+                                         for g in gots)
+        c["finite"] = bool(np.all(np.isfinite(gots[0])))
+        mem = ref["mem_" + case]
+        if case == "c":
+            dd = np.abs(gots[0] - mem)
+            c["max_abs_err_vs_in_memory"] = float(dd.max())
+            c["ok_vs_in_memory"] = bool(np.all(
+                dd <= MESH_FFT_ATOL + MESH_FFT_RTOL * np.abs(mem)))
+        else:
+            c["nrmse_vs_in_memory"] = nrmse(mem, gots[0])
+            tol = MH_RL_TOL if case == "a" else MESH_RL_TOL
+            c["in_memory_tol"] = tol
+            c["ok_vs_in_memory"] = bool(c["nrmse_vs_in_memory"] <= tol)
+        c["ok"] = bool(c["ok"] and c["same_on_every_process"] and c["finite"]
+                       and c["ok_vs_in_memory"])
+        out[case] = c
+    # every worker launches its positions' share of the one-process count
+    per_pos = ref["info"]["a"]["launches"]["zpass"] // (MH_WORLD * MH_LOCAL)
+    out["a"]["launches_ok"] = all(
+        w["a"]["launches"]["zpass"] == w["a"]["launches"]["sl_rows"]
+        == per_pos * MH_LOCAL > 0 for w in workers)
+    out["a"]["ok"] &= out["a"]["launches_ok"]
+    seg = [w["d"]["launches"]["segtopk"] for w in workers]
+    same = [bool(np.array_equal(load(f"d_{s}"), ref[f"d_{s}"]))
+            for s in range(DETECT_VIEWS)]
+    out["d"] = {"counts": [len(ref[f"d_{s}"]) for s in range(DETECT_VIEWS)],
+                "identical": same, "segtopk_each_worker": seg,
+                "ok": bool(all(same) and all(
+                    n == DETECT_VIEWS * MH_LOCAL for n in seg))}
+    e = vs_mesh(load("e"), ref["e"])
+    e["max_abs_err_vs_fuse_views"] = float(np.abs(load("e")
+                                                  - ref["fused"]).max())
+    e["ok"] = bool(e["ok"] and e["max_abs_err_vs_fuse_views"]
+                   <= MESH_FUSE_ATOL)
+    out["e"] = e
+    return out
+
+
+def mh_run_workers(d: str, visible=None) -> list:
+    """Both workers on a free port (CUDA_VISIBLE_DEVICES = visible[rank]
+    where given); their JSON lines."""
+    port = free_port()
+    envs = [mh_env(**({} if visible is None
+                      else {"CUDA_VISIBLE_DEVICES": visible[r]}))
+            for r in range(MH_WORLD)]
+    outs = mh_spawn([MH_WORKER + ["--multihost-worker", str(r),
+                                  str(MH_WORLD), str(port), d]
+                     for r in range(MH_WORLD)], envs)
+    return [json.loads([ln for ln in o.splitlines()
+                        if ln.startswith("{")][-1]) for o in outs]
+
+
+def mh_snapshot(root: str) -> dict:
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(dirpath, f))
+            out[os.path.relpath(os.path.join(dirpath, f), root)] = (
+                st.st_size, st.st_mtime_ns)
+    return out
+
+
+def mh_cli(d: str) -> dict:
+    """(f) `detect`, `register` and `deconvolve --multihost` as two
+    processes (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) on phase
+    cli's 4 x 256^3 dataset (simulated once here), each against the same
+    verb run once without `--multihost` on the same input: detection
+    equal to `detect_beads_dataset` on the same mesh (`--mesh auto`:
+    every process's cards) on one process, and against the single-device
+    verb as phase mesh (h) holds it (the same counts, every point within
+    1e-3 px except step-boundary pairs, at most one in
+    MESH_STEP_BOUNDARY_PER points, each an f32 tie by `tie_witness`: the
+    z-sharded DoG rounds otherwise than the whole volume's); models
+    within 1e-5; psi nrmse < MESH_CLI_DECONV_TOL. Process 1 reads a copy
+    of the dataset, which must stay as it was, and prints no results."""
+    import contextlib
+    import io
+    import shutil
+
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core.xml_io import load_dataset
+    from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
+    from spim_registration_tpu_torch.parallel import make_mesh
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"cli {argv} exited {rc}")
+
+    def state(xml):
+        ds = load_dataset(xml)
+        return ({v: np.asarray(vd.interest_points["beads"].points)
+                 for v, vd in ds.views.items()
+                 if "beads" in vd.interest_points},
+                {v: vd.model() for v, vd in ds.views.items()})
+
+    c = os.path.join(d, "cli")
+    base = os.path.join(c, "base")
+    walls = {}
+    t0 = time.perf_counter()
+    run(["simulate", "--out", base, "--views", str(N_VIEWS), "--shape",
+         *map(str, SHAPE), "--beads", "300", "--blur", "--seed", "11"])
+    walls["simulate"] = time.perf_counter() - t0
+    verbs = (("detect", []), ("register", []),
+             ("deconvolve", ["--out", "psi.npy", "--set",
+                             f"deconvolution.num_iterations={MH_CLI_ITERS}"]))
+    out = {"walls_s": walls}
+    src = base
+    for verb, extra in verbs:
+        dirs = {k: os.path.join(c, f"{verb}_{k}")
+                for k in ("single", "rank0", "rank1")}
+        for k in dirs:
+            shutil.copytree(src, dirs[k])
+
+        def argv(k):
+            return [verb, os.path.join(dirs[k], "dataset.xml")] + [
+                os.path.join(dirs[k], a) if a == "psi.npy" else a
+                for a in extra]
+
+        t0 = time.perf_counter()
+        run(argv("single"))
+        walls[verb + "_single"] = time.perf_counter() - t0
+        before = mh_snapshot(dirs["rank1"])
+        port = free_port()
+        t0 = time.perf_counter()
+        logs = mh_spawn(
+            [MH_CLI + [*argv(f"rank{r}"), "--multihost"]
+             for r in range(MH_WORLD)],
+            [mh_env(COORDINATOR_ADDRESS=f"localhost:{port}",
+                    NUM_PROCESSES=MH_WORLD, PROCESS_ID=r)
+             for r in range(MH_WORLD)])
+        walls[verb + "_multihost"] = time.perf_counter() - t0
+        said = {"detect": "points", "register": "residual",
+                "deconvolve": "deconvolved"}[verb]
+        case = {"rank0_prints": said in logs[0],
+                "rank1_silent": said not in logs[1]
+                and "view (" not in logs[1],
+                "rank1_wrote_nothing": mh_snapshot(dirs["rank1"]) == before}
+        one = os.path.join(dirs["single"], "dataset.xml")
+        multi = os.path.join(dirs["rank0"], "dataset.xml")
+        if verb == "detect":
+            p1, pm = state(one)[0], state(multi)[0]
+            counts = [[len(p1[v]), len(pm[v])] for v in sorted(p1)]
+            case["counts"] = counts
+            case["max_nearest_px"] = max(
+                max(_nearest(p1[v], pm[v]), _nearest(pm[v], p1[v]))
+                for v in p1)
+            params = cli._load_config(cli.build_parser().parse_args(
+                ["detect", one])).detection
+            n = MH_WORLD * torch.cuda.device_count()   # `--mesh auto`
+            mesh = make_mesh(("z",), (n,), devices=mesh_devices(n))
+            ds = cli._dataset_with_loader(os.path.join(base, "dataset.xml"))
+            detect_beads_dataset(ds, params=params, mesh=mesh)
+            # within the XML's 6 decimals
+            case["equal_to_one_process_mesh"] = all(
+                np.allclose(np.asarray(ds.views[v].interest_points[
+                    "beads"].points), pm[v], rtol=0, atol=1e-6)
+                for v in pm)
+            left, pairs = 0, []
+            for v in sorted(p1):
+                n_left, bp = step_boundary_pairs(p1[v], pm[v], 1e-3)
+                left += n_left
+                pairs += [{"view": list(v), "pair": pr,
+                           "witness": tie_witness(ds.get_image(v), params,
+                                                  pr, mesh)} for pr in bp]
+            case["unmatched"] = left
+            case["step_boundary_pairs"] = pairs
+            case["ok"] = bool(
+                all(a == b for a, b in counts) and left == 0
+                and len(pairs) * MESH_STEP_BOUNDARY_PER
+                <= sum(c[0] for c in counts)
+                and all(p["witness"]["ok"] for p in pairs)
+                and case["equal_to_one_process_mesh"])
+        elif verb == "register":
+            m1, mm = state(one)[1], state(multi)[1]
+            case["model_max_err"] = max(float(np.abs(m1[v] - mm[v]).max())
+                                        for v in m1)
+            case["ok"] = case["model_max_err"] <= 1e-5
+        else:
+            a = np.load(os.path.join(dirs["single"], "psi.npy"))
+            b = np.load(os.path.join(dirs["rank0"], "psi.npy"))
+            case["nrmse"] = nrmse(a, b)
+            case["ok"] = bool(a.shape == b.shape
+                              and case["nrmse"] < MESH_CLI_DECONV_TOL)
+        case["ok"] = bool(case["ok"] and case["rank0_prints"]
+                          and case["rank1_silent"]
+                          and case["rank1_wrote_nothing"])
+        out[verb] = case
+        src = dirs["rank0"]
+    out["ok"] = all(out[v]["ok"] for v, _ in verbs)
+    return out
+
+
+def phase_multihost(psfs, factors, pipe) -> dict:
+    """Two processes on the card: cases (a)-(e) of `mh_cases` in both
+    workers over 2 x MH_LOCAL positions, held against the same mesh on
+    this process and the in-memory engines (`mh_check`), on the route
+    `initialize_multihost` picks (gloo through the host on one card; a
+    second run with one card a worker, NCCL, where there are two or
+    more), then the CLI (`mh_cli`). Prints one JSON line per run; returns
+    each worker's launches of zpass, sl_rows and segtopk in (a) and (d)."""
+    import tempfile
+
+    n_cards = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()      # every card
+    runs = [("default", None)]
+    if n_cards >= 2:
+        runs.append(("one card a worker", [str(r) for r in range(MH_WORLD)]))
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_multihost_smoke_") \
+            as d:
+        scene, reg, bbox = pipe["scene"], pipe["reg"], pipe["bbox"]
+        for v in range(N_VIEWS):
+            np.save(os.path.join(d, f"fuse_view{v}.npy"),
+                    np.asarray(scene.volumes[v], np.float32))
+        np.savez(os.path.join(d, "fuse_in.npz"), models=np.stack(reg.models),
+                 lo=np.asarray(bbox.min), hi=np.asarray(bbox.max))
+        t0 = time.perf_counter()
+        ref = mh_references(psfs, factors, pipe, mh_fuse_inputs(d))
+        ref_s = time.perf_counter() - t0
+        ok = True
+        for name, visible in runs:
+            t0 = time.perf_counter()
+            workers = mh_run_workers(d, visible)
+            wall = time.perf_counter() - t0
+            checks = mh_check(d, ref, workers)
+            hop = [w["a"]["hops"] for w in workers]
+            line = {"phase": "multihost", "run": name, "nvidia_smi": smi,
+                    "route": workers[0]["route"],
+                    "processes": MH_WORLD, "positions_each": MH_LOCAL,
+                    "devices": [w["devices"] for w in workers],
+                    "wall_s": wall, "references_s": ref_s,
+                    "reduced": MH_REDUCED,
+                    "a_bytes_across_per_run": sum(h["bytes"] for h in hop),
+                    "a_hop_s_per_run": [h["seconds"] for h in hop],
+                    "a_exchanges_per_run": [h["exchanges"] for h in hop],
+                    "a_walls_s": [w["a"]["walls_s"] for w in workers],
+                    "a_wall": [w["a"]["wall"] for w in workers],
+                    "a_one_process_wall_s": ref["info"]["a"]["walls_s"],
+                    "c_walls_s": [w["c"]["walls_s"] for w in workers],
+                    "launches": {c: [w[c]["launches"] for w in workers]
+                                 for c in ("a", "b", "c", "d")},
+                    "walls_s": {c: [w[c].get("wall_s") for w in workers]
+                                for c in ("b", "d", "e")},
+                    "join_s": [w["join_s"] for w in workers],
+                    "worker_walls_s": [w["wall_s"] for w in workers],
+                    **checks}
+            if n_cards < 2:
+                line["nccl"] = f"not run: {n_cards} card"
+            emit(line)
+            ok &= all(checks[c]["ok"] for c in ("a", "b", "c", "d", "e"))
+            if name == "default":
+                launches = {
+                    "zpass": [w["a"]["launches"]["zpass"] for w in workers],
+                    "sl_rows": [w["a"]["launches"]["sl_rows"]
+                                for w in workers],
+                    "segtopk": [w["d"]["launches"]["segtopk"]
+                                for w in workers]}
+        t0 = time.perf_counter()
+        cli_out = mh_cli(d)
+        emit({"phase": "multihost", "case": "cli",
+              "wall_s": time.perf_counter() - t0, **cli_out})
+        ok &= cli_out["ok"]
+    if not ok:
+        raise AssertionError("phase multihost failed")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     alone = ap.add_mutually_exclusive_group()
@@ -3367,6 +3898,14 @@ def main() -> int:
                        help="run only the card, build, pipeline and mesh "
                             "phases of this checkout, without the result "
                             "line")
+    alone.add_argument("--multihost-only", action="store_true",
+                       help="run only the card, build, pipeline and "
+                            "multihost phases of this checkout, without "
+                            "the result line")
+    alone.add_argument("--multihost-worker", nargs=4,
+                       metavar=("RANK", "WORLD", "PORT", "DIR"),
+                       help="one process of phase multihost (started by "
+                            "that phase)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
@@ -3397,6 +3936,10 @@ def main() -> int:
     # the CP-factor cache stays inside the checkout
     os.environ.setdefault("SPIM_FACTOR_CACHE_DIR",
                           str(ROOT / ".factor_cache"))
+    if args.multihost_worker:
+        rank, world, port, d = args.multihost_worker
+        multihost_worker(int(rank), int(world), int(port), d)
+        return 0
     from spim_registration_tpu_torch.utils.device import set_exact_float32
 
     set_exact_float32()
@@ -3413,9 +3956,12 @@ def main() -> int:
     smi = timed("card", phase_card)
     timed("build", phase_build)
     psfs, factors = load_fixtures()
-    if args.mesh_only:
-        timed("mesh", phase_mesh, psfs, factors,
-              timed("pipeline", phase_pipeline))
+    if args.mesh_only or args.multihost_only:
+        pipe = timed("pipeline", phase_pipeline)
+        if args.mesh_only:
+            timed("mesh", phase_mesh, psfs, factors, pipe)
+        else:
+            timed("multihost", phase_multihost, psfs, factors, pipe)
         emit({"phase": "walls", "seconds": walls,
               "total_s": time.perf_counter() - t_start})
         return 0
@@ -3431,6 +3977,7 @@ def main() -> int:
     timed("match", phase_match)
     pipe = timed("pipeline", phase_pipeline)
     mesh = timed("mesh", phase_mesh, psfs, factors, pipe)
+    multihost = timed("multihost", phase_multihost, psfs, factors, pipe)
     del pipe
     launches_timelapse = timed("timelapse", phase_timelapse)
     timed("small_vs_cpu", phase_small_vs_cpu)
@@ -3452,6 +3999,7 @@ def main() -> int:
     for name in ("zpass", "sl_rows", "segtopk"):
         kernels[name]["launches_mesh"] = mesh[name]
         kernels[name]["max_abs_err_mesh_shard"] = mesh["errors"][name]
+        kernels[name]["launches_multihost"] = multihost[name]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
                                            "dog", "zfused")]})
     print(smi, flush=True)

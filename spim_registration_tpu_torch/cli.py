@@ -46,10 +46,22 @@ which needs the parallel scheme; with `--out-of-core` the z-blocks go
 round the mesh) and `cluster-job`; `fuse --out-of-core` stays on one
 device and says so, and `tune` / `icp-refine` accept the option and run
 on one device, as in the reference. A mesh larger than the cards present
-exits 2 ("mesh needs N devices, have M"). The reference's `--multihost`
-(processes joined by `jax.distributed`) is not ported yet: argparse
-refuses it (exit code 2), and ROADMAP.md queues it as the next slice.
-Nothing falls back to another path.
+exits 2 ("mesh needs N devices, have M"). Nothing falls back to another
+path.
+
+`--multihost` (on every verb that takes `--mesh`) first joins the
+processes named by COORDINATOR_ADDRESS (host:port), NUM_PROCESSES and
+PROCESS_ID (`parallel.initialize_multihost`, torch.distributed) and
+implies `--mesh auto`; the mesh then spans the processes. Every process
+runs the verb on the same XML and computes; only process 0 prints the
+results and writes the XML, manifests and volumes.
+
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=2 PROCESS_ID=0 \
+        python -m spim_registration_tpu_torch.cli deconvolve ds/dataset.xml \
+        --multihost --mesh z=8 --device cpu &
+    COORDINATOR_ADDRESS=localhost:29500 NUM_PROCESSES=2 PROCESS_ID=1 \
+        python -m spim_registration_tpu_torch.cli deconvolve ds/dataset.xml \
+        --multihost --mesh z=8 --device cpu
 """
 
 from __future__ import annotations
@@ -117,11 +129,26 @@ def _dataset_with_loader(xml_path: str):
 
 
 def _mesh_from_args(args):
-    """The stage's mesh from `--mesh` on `--device`'s kind, or None for
-    the single-device engines."""
+    """The stage's mesh from `--mesh` on `--device`'s kind (`auto` by
+    default under `--multihost`), or None for the single-device
+    engines."""
     from spim_registration_tpu_torch.parallel.mesh import mesh_from_spec
 
-    return mesh_from_spec(getattr(args, "mesh", None), args.device)
+    spec = getattr(args, "mesh", None)
+    if spec is None and getattr(args, "multihost", False):
+        spec = "auto"
+    return mesh_from_spec(spec, args.device)
+
+
+def _is_primary() -> bool:
+    """Only process 0 prints results and writes XML, manifests and
+    volumes on a multi-process run (every process computes; outputs are
+    gathered to all)."""
+    from spim_registration_tpu_torch.parallel.multihost import (
+        process_index,
+    )
+
+    return process_index() == 0
 
 
 def _single_device_note(args, verb: str, why: str) -> None:
@@ -265,6 +292,8 @@ def cmd_detect(args):
     else:
         detect_beads_dataset(ds, label=cfg.label, params=cfg.detection,
                              device=args.device, mesh=mesh)
+    if not _is_primary():
+        return
     save_dataset(ds, args.xml)
     counts = {}
     for vid in sorted(ds.views):
@@ -307,6 +336,8 @@ def cmd_register(args):
             res = register_views(vols, rc, device=args.device, mesh=mesh)
         for v, vd in enumerate(views):
             vd.set_transform("registration", res.models[v])
+        if not _is_primary():
+            continue
         print(f"tp {tp}: residual mean={res.mean_error:.4f} "
               f"max={res.max_error:.4f} px")
         write_manifest(ds.base_path, "register", rc, {
@@ -321,7 +352,8 @@ def cmd_register(args):
             } for (i, j), r in res.pair_results.items()},
             "timings_s": res.timings,
         })
-    save_dataset(ds, args.xml)
+    if _is_primary():
+        save_dataset(ds, args.xml)
 
 
 def _resolve_bbox(ds, args, vols, models):
@@ -413,7 +445,7 @@ def cmd_fuse(args):
         else:
             out = fuse_views(vols, models, bbox, cfg.fusion,
                              device=args.device)
-        if out is not None:
+        if _is_primary() and out is not None:
             _export_volume(args, ds, out, tp, bbox, "fused")
 
 
@@ -482,7 +514,7 @@ def cmd_deconvolve(args):
             prep = prepare_views_for_deconvolution(vols, models, psfs, bbox,
                                                    device=args.device)
             out = _deconvolve_in_memory(prep, cfg, args, mesh)
-        if out is not None:
+        if _is_primary() and out is not None:
             _export_volume(args, ds, out, tp, bbox, "deconvolved")
 
 
@@ -749,11 +781,16 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--profile", metavar="DIR",
                         help="write a torch.profiler trace of this stage "
                              "into DIR")
+        sp.add_argument("--multihost", action="store_true",
+                        help="join the processes named by "
+                             "COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID "
+                             "(torch.distributed) first; implies --mesh "
+                             "auto")
         sp.add_argument("--mesh", metavar="SPEC",
                         help="run this stage on a device mesh of "
                              "--device's kind: 'auto' (every card, z "
                              "axis), 'z=4' or 'view=2,z=4'; default one "
-                             "device")
+                             "device (--multihost implies auto)")
 
     sp = sub.add_parser("define",
                         help="define a dataset from files on disk")
@@ -898,6 +935,14 @@ def main(argv=None):
               f"(see ROADMAP.md)", file=sys.stderr)
         return 2
     args = build_parser().parse_args(argv)
+    multihost = getattr(args, "multihost", False)
+    if multihost:
+        from spim_registration_tpu_torch.parallel.multihost import (
+            initialize_multihost,
+            shutdown_multihost,
+        )
+
+        initialize_multihost()
     try:
         if getattr(args, "profile", None):
             from spim_registration_tpu_torch.utils.profiling import trace
@@ -910,6 +955,9 @@ def main(argv=None):
         return 2
     except BrokenPipeError:  # stdout closed early (e.g. piped to head)
         return 0
+    finally:
+        if multihost:  # every process leaves after process 0 has written
+            shutdown_multihost()
 
 
 if __name__ == "__main__":

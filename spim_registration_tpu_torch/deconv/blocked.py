@@ -38,7 +38,12 @@ mesh position k % mesh.size (the reference's `_view_update_meshed` runs
 groups of `mesh.size` blocks as one sharded program): every block of a
 view-update reads the pre-update psi, so the blocks are independent and
 the result is the single-device loop's. The loop is the same one, with
-the same write-back pipeline; only each block's device changes.
+the same write-back pipeline; only each block's device changes. A mesh
+that spans processes is refused (ValueError): the reference's engine
+cannot run one either (its `_view_update_meshed` reads the group's
+output back on the host, which a jax.Array on another process's devices
+refuses), and the stores of one engine are read and written by one
+process.
 
 Stores: anything with `.shape`, `.read_block(lo, hi)`,
 `.write_block(lo, arr)` — `native_blocks.RawVolumeStore` (threaded
@@ -274,6 +279,11 @@ class BlockedDeconvolutionRunner:
                              + params.conv_backend)
         if params.scheme != "sequential":
             raise ValueError("blocked deconvolution is OSEM-sequential")
+        if mesh is not None and mesh.spans_processes:
+            raise ValueError(
+                "the blocked engine runs on one process: its stores are "
+                "read and written by the process that runs it, so a mesh "
+                "that spans processes is not supported")
         # block k runs on self._devices[k % len(self._devices)]
         self._devices = ([resolve_device(device)] if mesh is None
                          else list(mesh.devices.flat))

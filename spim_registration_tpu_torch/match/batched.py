@@ -4,11 +4,14 @@ Port of the reference's `match/batched.py` (one vmapped program for all
 pairs): here the pair axis is the leading batch axis of the device
 functions in `match/pairwise.py`. With a `mesh` the pair axis is sharded
 over every mesh position, as in the reference: the bucket is rounded up
-to a multiple of the mesh size and each position matches its slots.
+to a multiple of the mesh size and each position matches its slots; the
+slots of other processes' positions arrive by all-gather (the
+reference's `process_allgather`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +23,7 @@ from spim_registration_tpu_torch.match.pairwise import (
     _match_device,
     _results,
 )
+from spim_registration_tpu_torch.models.ransac import RansacResult
 from spim_registration_tpu_torch.utils.device import resolve_device
 
 
@@ -65,7 +69,7 @@ def match_pairs_batched(
         slots [i B / n, (i + 1) B / n) on its device.
 
     Returns {pair: PairwiseResult} like repeated `match_pair` calls."""
-    dev = mesh.device(0) if mesh is not None else resolve_device(device)
+    dev = mesh.first_device() if mesh is not None else resolve_device(device)
     n = params.max_points
     V = len(points)
     padded = np.zeros((V, n, 3), np.float32)
@@ -92,17 +96,21 @@ def match_pairs_batched(
         j, ok, res = _match_device(
             seeds, *(torch.from_numpy(a).to(dev) for a in args), params)
         return dict(zip(pairs, _results(j, ok, res, len(pairs))))
-    from spim_registration_tpu_torch.parallel.mesh import shard_map
+    from spim_registration_tpu_torch.parallel.mesh import allgather, shard_map
 
     n = B // mesh.size
+    fields = [f.name for f in dataclasses.fields(RansacResult)]
 
     def f(p):
         d = mesh.device(p)
         sl = slice(p * n, (p + 1) * n)
-        return _match_device(
+        j, ok, res = _match_device(
             seeds[sl], *(torch.from_numpy(a[sl]).to(d) for a in args),
             params)
+        return (j, ok) + tuple(getattr(res, k) for k in fields)
 
     # every position launched before the first result is read back
-    slots = [r for out in shard_map(f, mesh) for r in _results(*out, n)]
+    slots = [r for out in allgather(shard_map(f, mesh), mesh)
+             for r in _results(out[0], out[1],
+                               RansacResult(*out[2:]), n)]
     return dict(zip(pairs, slots))

@@ -5,7 +5,8 @@ boundary slices from its mesh neighbours (`mesh.ppermute`), and the
 global volume edges are mirror-padded (reflect without the edge sample,
 the reference's out-of-bounds mirror) or zero-padded. Halos deeper than a
 shard come from several hops of whole neighbour blocks (thin shards x wide
-PSF supports).
+PSF supports). Every step runs at this process's positions only
+(`shard_map`); a hop across processes is `ppermute`'s.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def halo_exchange_z(xs: list, h: int, mesh: Mesh, axis_name: str = "z",
         return list(xs)
     if boundary not in ("mirror", "zero"):
         raise ValueError(f"unknown boundary {boundary!r}")
-    zl = xs[0].shape[0]
+    zl = mesh.first(xs).shape[0]
     n = mesh.shape[axis_name]
     Z = n * zl
     if h > Z - 1:
@@ -63,11 +64,15 @@ def halo_exchange_z(xs: list, h: int, mesh: Mesh, axis_name: str = "z",
     r = h - (hops - 1) * zl      # rows taken from the outermost block
     below, above = [xs], [xs]    # blocks from shards i-k and i+k
     for k in range(1, hops + 1):
-        lo = below[-1] if k < hops else [b[-r:] for b in below[-1]]
-        hi = above[-1] if k < hops else [b[:r] for b in above[-1]]
+        lo = below[-1] if k < hops else shard_map(
+            lambda p, b: b[-r:], mesh, below[-1])
+        hi = above[-1] if k < hops else shard_map(
+            lambda p, b: b[:r], mesh, above[-1])
         if n == 1:
-            below.append([torch.zeros_like(b) for b in lo])
-            above.append([torch.zeros_like(b) for b in hi])
+            below.append(shard_map(lambda p, b: torch.zeros_like(b), mesh,
+                                   lo))
+            above.append(shard_map(lambda p, b: torch.zeros_like(b), mesh,
+                                   hi))
         else:
             below.append(ppermute(lo, mesh, axis_name, 1))
             above.append(ppermute(hi, mesh, axis_name, -1))

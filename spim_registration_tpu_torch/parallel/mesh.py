@@ -1,18 +1,22 @@
 """Device mesh and the cross-shard steps of the multi-device layer.
 
 Port of the reference's `parallel/mesh.py` (a `jax.sharding.Mesh` over
-`jax.devices()`). Here one process drives a grid of `torch.device`s: a
+`jax.devices()`). Here each process drives a grid of `torch.device`s: a
 `Mesh` names the grid's axes, a sharded array is a plain list holding one
 tensor per mesh position (row-major over `Mesh.devices`), and every step
 that crosses positions is one of the functions below:
 
 - `shard` / `gather`: a host array to per-position shards and back
-  (`jax.device_put` with a `NamedSharding`, `np.asarray`);
+  (`jax.device_put` with a `NamedSharding`; `np.asarray`, or across
+  processes `process_allgather(tiled=True)`: every process receives the
+  whole array);
 - `shard_map`: a function applied at every position on its device
   (`shard_map`'s body; `axis_index` is `Mesh.index`);
 - `ppermute`: each position receives its neighbour's tensor along an
   axis (`lax.ppermute` with a shift permutation);
-- `psum`: the sum over an axis, in axis order (`lax.psum`).
+- `psum`: the sum over an axis, in axis order (`lax.psum`);
+- `allgather`: every position's tensors on every process (the
+  reference's `process_allgather` of per-shard results).
 
 The engines (`parallel/halo.py`, `sharded.py`, `sharded_detect.py`) cross
 positions only through these. A copy between two devices is
@@ -24,8 +28,17 @@ convolution axis); ("view", "z") runs views data-parallel x z-sharded. A
 mesh may name one device at several positions (`[cuda:0] * 4`, or the
 host eight times in the tests): that is the counterpart of the
 reference's virtual devices, and its shards then run one after another
-on that device. The reference's ("host", "z") mesh across processes is
-not here; it needs `torch.distributed` behind these same functions.
+on that device.
+
+Once processes are joined (`parallel/multihost.py`), a mesh spans them:
+positions are process-major (process r owns positions [r L, (r + 1) L),
+L a process), a process holds tensors only at its own positions (the
+others are None in its lists), `shard_map` runs there only, and
+`ppermute`, `psum`, `gather` and `allgather` reach the other processes
+through `multihost.exchange` / `multihost.all_gather`. A sum over an
+axis that crosses processes gathers the partials first and adds them in
+axis order, so it equals the one-process sum. Without a group every
+function works within the process, as before.
 """
 
 from __future__ import annotations
@@ -35,7 +48,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from spim_registration_tpu_torch.parallel import multihost
 from spim_registration_tpu_torch.utils.device import (
+    local_cards,
     on_device,
     resolve_device,
 )
@@ -44,11 +59,15 @@ from spim_registration_tpu_torch.utils.device import (
 class Mesh:
     """Named axes over an ndarray of `torch.device` (the reference's
     `jax.sharding.Mesh`). Positions are numbered row-major over
-    `devices`."""
+    `devices`. `owners`, where given, holds the rank of the process that
+    owns each position; the devices of other processes' positions are
+    None. Without it every position is this process's."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 owners: Optional[np.ndarray] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.owners = owners
         if devices.ndim != len(self.axis_names):
             raise ValueError(f"{devices.ndim}-d device grid for axes "
                              f"{self.axis_names}")
@@ -62,8 +81,34 @@ class Mesh:
     def size(self) -> int:
         return int(self.devices.size)
 
+    @property
+    def spans_processes(self) -> bool:
+        return self.owners is not None and len(set(self.owners.flat)) > 1
+
+    def owner(self, p: int) -> int:
+        """The rank of the process that owns position p."""
+        if self.owners is None:
+            return multihost.process_index()
+        return int(self.owners.flat[p])
+
+    def is_local(self, p: int) -> bool:
+        return self.owner(p) == multihost.process_index()
+
+    @property
+    def local_positions(self) -> list:
+        return [p for p in range(self.size) if self.is_local(p)]
+
     def device(self, p: int) -> torch.device:
         return self.devices.flat[p]
+
+    def first_device(self) -> torch.device:
+        """The device of this process's first position (where a stage
+        that runs once a process stages its tensors)."""
+        return self.device(self.local_positions[0])
+
+    def first(self, xs: list):
+        """This process's first position's entry of a sharded list."""
+        return xs[self.local_positions[0]]
 
     def index(self, p: int, axis: str) -> int:
         """Position p's coordinate along `axis` (`lax.axis_index`)."""
@@ -78,49 +123,64 @@ class Mesh:
 def make_mesh(axis_names: Sequence[str] = ("z",),
               axis_sizes: Optional[Sequence[int]] = None,
               devices=None) -> Mesh:
-    """Build a Mesh over `devices` (default: every visible CUDA card, in
-    order; raises without one, as the entry points do).
+    """Build a Mesh over `devices`, this process's devices (default:
+    every card it sees, in order; raises without one, as the entry points
+    do).
 
-    With no `axis_sizes`, all devices go to the last axis and leading axes
-    get size 1. The first prod(axis_sizes) devices are used; fewer raise
-    the reference's ValueError. An explicit list may name one device more
-    than once (`[torch.device("cuda:0")] * 4`)."""
+    With no `axis_sizes`, all positions go to the last axis and leading
+    axes get size 1. An explicit list may name one device more than once
+    (`[torch.device("cuda:0")] * 4`). Once processes are joined the mesh
+    spans them: its positions split evenly over the processes (process-
+    major), each process puts its share on its `devices` in order, and
+    with no `axis_sizes` the last axis holds every process's devices.
+    Fewer devices than positions raise the reference's ValueError
+    ("mesh needs N devices, have M", counted over every process)."""
     if devices is None:
-        resolve_device("cuda")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = local_cards()
     devices = [torch.device(d) for d in devices]
+    world = multihost.process_count()
     n = len(devices)
     if axis_sizes is None:
-        axis_sizes = [1] * (len(axis_names) - 1) + [n]
+        axis_sizes = [1] * (len(axis_names) - 1) + [n * world]
     total = int(np.prod(axis_sizes))
-    if total > n:
-        raise ValueError(f"mesh needs {total} devices, have {n}")
+    if total % world:
+        raise ValueError(f"a mesh of {total} positions does not split "
+                         f"over {world} processes")
+    per = total // world
+    if per > n:
+        raise ValueError(f"mesh needs {total} devices, have {n * world}")
+    rank = multihost.process_index()
     grid = np.empty(total, dtype=object)
-    for i, d in enumerate(devices[:total]):
-        grid[i] = d
-    return Mesh(grid.reshape(tuple(int(s) for s in axis_sizes)), axis_names)
+    for i in range(per):
+        grid[rank * per + i] = devices[i]
+    shape = tuple(int(s) for s in axis_sizes)
+    owners = (np.repeat(np.arange(world), per).reshape(shape)
+              if world > 1 else None)
+    return Mesh(grid.reshape(shape), axis_names, owners)
 
 
 def mesh_from_spec(spec: Optional[str], device=None) -> Optional[Mesh]:
     """Parse the CLI's `--mesh` flag into a Mesh (or None).
 
     Accepted: None / "" / "none" / "1" -> single device (no mesh);
-    "auto" -> every visible card on a ("z",) axis (None if only one);
+    "auto" -> every card on a ("z",) axis (None if only one);
     "z=8" / "view=2,z=4" -> explicit axis names and sizes. `device` is the
     stage's device (default CUDA): on CUDA the positions go over
     cuda:0..n-1 in order, and a mesh larger than the cards present raises
     "mesh needs N devices, have M". On the CPU every position is the
     host, so "z=8" is eight shards run one after another there and "auto"
     is None (the reference's CPU has 8 virtual devices, the port's one
-    host)."""
+    host). Once processes are joined the mesh spans them (`make_mesh`):
+    "auto" is every process's cards, or one position a process on the
+    CPU, and an explicit spec splits evenly over the processes."""
     if spec is None or spec in ("", "none", "1"):
         return None
     dev = resolve_device(device)
+    world = multihost.process_count()
     if spec == "auto":
         if dev.type != "cuda":
-            return None
-        n = torch.cuda.device_count()
+            return make_mesh(("z",), (world,), [dev]) if world > 1 else None
+        n = torch.cuda.device_count() * world
         return make_mesh(("z",), (n,)) if n > 1 else None
     names, sizes = [], []
     for part in spec.split(","):
@@ -133,16 +193,20 @@ def mesh_from_spec(spec: Optional[str], device=None) -> Optional[Mesh]:
     if dev.type == "cuda":
         return make_mesh(tuple(names), tuple(sizes))
     return make_mesh(tuple(names), tuple(sizes),
-                     devices=[dev] * int(np.prod(sizes)))
+                     devices=[dev] * (int(np.prod(sizes)) // world))
 
 
 # ------------------------------------------------------------ cross-shard
 
 def shard_map(fn, mesh: Mesh, *shards) -> list:
-    """[fn(p, shards[0][p], shards[1][p], ...) for every position p], each
-    on p's device."""
+    """[fn(p, shards[0][p], shards[1][p], ...) for every position p of
+    this process], each on p's device; None at other processes'
+    positions."""
     out = []
     for p in range(mesh.size):
+        if not mesh.is_local(p):
+            out.append(None)
+            continue
         with on_device(mesh.device(p)):
             out.append(fn(p, *(s[p] for s in shards)))
     return out
@@ -163,25 +227,53 @@ def _axis_group(mesh: Mesh, p: int, axis: str) -> list:
 def ppermute(xs: list, mesh: Mesh, axis: str, shift: int) -> list:
     """Each position receives the tensor of the position `shift` before
     it along `axis` (i <- i - shift); positions without a source get
-    zeros, as `lax.ppermute` gives them."""
-    out = []
+    zeros, as `lax.ppermute` gives them. Sources of another process
+    arrive in one `multihost.exchange` a call."""
+    out = [None] * mesh.size
+    sends, recvs, remote = [], [], []
+    me = multihost.process_index()
     for p in range(mesh.size):
         group = _axis_group(mesh, p, axis)
-        src = mesh.index(p, axis) - shift
-        dev = mesh.device(p)
-        if 0 <= src < len(group):
-            out.append(xs[group[src]].to(dev, non_blocking=True))
-        else:
-            out.append(torch.zeros_like(xs[p], device=dev))
+        i = mesh.index(p, axis) - shift
+        q = group[i] if 0 <= i < len(group) else None
+        if q is None or mesh.owner(q) == mesh.owner(p):
+            if mesh.is_local(p):
+                dev = mesh.device(p)
+                out[p] = (torch.zeros_like(xs[p], device=dev) if q is None
+                          else xs[q].to(dev, non_blocking=True))
+        elif mesh.owner(q) == me:        # q -> p, p on another process
+            sends.append((xs[q], mesh.owner(p), p))
+        elif mesh.is_local(p):
+            recvs.append((xs[p], mesh.owner(q), mesh.device(p), p))
+            remote.append(p)
+    for p, t in zip(remote, multihost.exchange(sends, recvs)):
+        out[p] = t
     return out
 
 
+def _crosses(mesh: Mesh, axis: str) -> bool:
+    """Whether some group along `axis` holds positions of two
+    processes (the same answer on every process)."""
+    if not mesh.spans_processes:
+        return False
+    return any(len({mesh.owner(q) for q in _axis_group(mesh, p, axis)}) > 1
+               for p in range(mesh.size))
+
+
 def psum(xs: list, mesh: Mesh, axis: str) -> list:
-    """The sum over `axis` at every position (x_0 + x_1 + ... in axis
-    order), computed once per group and device."""
+    """The sum over `axis` at every position of this process (x_0 + x_1
+    + ... in axis order), computed once per group and device. Where the
+    axis crosses processes the partials are gathered first
+    (`allgather`), so the order and the result stay the one-process
+    ones."""
+    if _crosses(mesh, axis):
+        xs = allgather(xs, mesh)
     done = {}
     out = []
     for p in range(mesh.size):
+        if not mesh.is_local(p):
+            out.append(None)
+            continue
         group = _axis_group(mesh, p, axis)
         dev = mesh.device(p)
         key = (group[0], dev)
@@ -193,6 +285,26 @@ def psum(xs: list, mesh: Mesh, axis: str) -> list:
             done[key] = acc
         out.append(done[key])
     return out
+
+
+def allgather(xs: list, mesh: Mesh) -> list:
+    """Every position's entry of a sharded list on this process, each a
+    tensor or a tuple of tensors (`process_allgather` of per-shard
+    results): this process's as they are, the others' received on the
+    host (gloo) or on this process's first device (NCCL). Without other
+    processes, `xs` itself."""
+    if not mesh.spans_processes:
+        return list(xs)
+    local = mesh.local_positions
+    first = xs[local[0]]
+    if isinstance(first, tuple):
+        parts = [allgather([None if x is None else x[k] for x in xs], mesh)
+                 for k in range(len(first))]
+        return [tuple(part[p] for part in parts) for p in range(mesh.size)]
+    got = multihost.all_gather([xs[p] for p in local])
+    per = len(local)
+    return [xs[p] if mesh.is_local(p) else got[mesh.owner(p)][p % per]
+            for p in range(mesh.size)]
 
 
 def _local_index(mesh: Mesh, p: int, spec, shape) -> tuple:
@@ -214,11 +326,11 @@ def _local_index(mesh: Mesh, p: int, spec, shape) -> tuple:
 
 
 def shard(array, mesh: Mesh, spec=(), dtype=torch.float32) -> list:
-    """Per-position shards of a host array (or tensor): the leading dims
-    split over the axes named in `spec` (None: replicated), the rest whole
-    (`jax.device_put(a, NamedSharding(mesh, P(*spec)))`). Positions on one
-    device that hold the same slice share one tensor, so shards are never
-    changed in place."""
+    """This process's shards of a host array (or tensor), the others None:
+    the leading dims split over the axes named in `spec` (None:
+    replicated), the rest whole (`jax.device_put(a, NamedSharding(mesh,
+    P(*spec)))`). Positions on one device that hold the same slice share
+    one tensor, so shards are never changed in place."""
     if isinstance(array, np.ndarray):
         array = torch.from_numpy(np.ascontiguousarray(array))
     array = array.to(dtype)
@@ -226,6 +338,9 @@ def shard(array, mesh: Mesh, spec=(), dtype=torch.float32) -> list:
     out = []
     for p in range(mesh.size):
         idx = _local_index(mesh, p, spec, array.shape)
+        if not mesh.is_local(p):
+            out.append(None)
+            continue
         dev = mesh.device(p)
         key = (str(idx), dev)
         if key not in done:
@@ -235,8 +350,10 @@ def shard(array, mesh: Mesh, spec=(), dtype=torch.float32) -> list:
 
 
 def gather(xs: list, mesh: Mesh, spec=()) -> np.ndarray:
-    """The host array whose shards `xs` are (the inverse of `shard`): each
-    block is read from the first position that holds it."""
+    """The host array whose shards `xs` are (the inverse of `shard`), on
+    every process (`process_allgather(tiled=True)`): each block is read
+    from the first position that holds it."""
+    xs = allgather(xs, mesh)
     first = xs[0]
     shape = list(first.shape)
     for d, name in enumerate(spec):

@@ -18,7 +18,9 @@ the device alone, as in the out-of-core engine (`lowrank_fused` selects
 between the kernels and the plain chain only in the in-memory engine).
 
 Inputs are host arrays (or tensors); outputs are host arrays, except
-`device_result`.
+`device_result`. Across processes (`parallel/multihost.py`) every
+process stages and runs its own positions, and the outputs are gathered
+to every process (`gather`, the reference's `process_allgather`).
 """
 
 from __future__ import annotations
@@ -69,13 +71,15 @@ def _host(a) -> np.ndarray:
 
 
 def _per_device(mesh: Mesh, make) -> list:
-    """make(device) once per distinct device, listed per position."""
+    """make(device) once per distinct device of this process, listed per
+    position (None at other processes' positions)."""
     done = {}
-    for p in range(mesh.size):
+    for p in mesh.local_positions:
         dev = mesh.device(p)
         if dev not in done:
             done[dev] = make(dev)
-    return [done[mesh.device(p)] for p in range(mesh.size)]
+    return [done[mesh.device(p)] if mesh.is_local(p) else None
+            for p in range(mesh.size)]
 
 
 def _check_depth(Z: int, nz: int) -> None:
@@ -230,7 +234,7 @@ def _sharded_lowrank_entries(kernels, zl, yx, params, mesh: Mesh, fft,
     """Per-position lowrank entries of one conv stage: each kernel's z
     support clamped to `max_z_taps`, then the blocked engine's
     `_lowrank_stage_entries` with the z band over a halo-extended shard of
-    `zl` rows, staged on the first position's device and copied to the
+    `zl` rows, staged on this process's first device and copied to its
     others. A kernel that missed `psf_rank_tol` gets `fft(kernel, device)`,
     the exact per-shard FFT entry."""
     ks, facs = [], []
@@ -243,7 +247,7 @@ def _sharded_lowrank_entries(kernels, zl, yx, params, mesh: Mesh, fft,
         ks.append(np.asarray(k, np.float32))
         facs.append(fac)
     entries, _, _ = _lowrank_stage_entries(ks, zl, yx, params, facs,
-                                           device=mesh.device(0))
+                                           device=mesh.first_device())
     return _per_device(mesh, lambda d: [
         fft(k, d) if e is None else _entry_to(e, d)
         for k, e in zip(ks, entries)])
@@ -289,7 +293,7 @@ def _mirror_restore_z(xs: list, Z_true: int, hr: int, mesh: Mesh,
     window, so the ragged-depth sharded RL is exact at the true bottom
     edge. `hr` = max(1, 2 pad - zl + 1) reaches every source row
     (multi-hop through `halo_exchange_z`)."""
-    zl = xs[0].shape[0]
+    zl = mesh.first(xs).shape[0]
     xps = halo_exchange_z(xs, hr, mesh, axis_name)
 
     def f(p, x, xp):
@@ -434,15 +438,12 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
     if stacked is not None:
         k1 = k2 = None
     elif backend == "separable":
-        banks = [
-            _per_device(mesh, lambda d, ks=ks: _stack_factor_banks(
+        k1, k2 = (shard_map(
+            lambda p, bk: [tuple(b[v] for b in bk) for v in range(V)],
+            mesh, _per_device(mesh, lambda d, ks=ks: _stack_factor_banks(
                 [_fit(np.asarray(k, np.float32)) for k in ks],
-                params.psf_rank, params.psf_rank_max_error, d))
-            for ks in (psfs, k2s)]
-        k1 = [[tuple(b[v] for b in bk) for v in range(V)]
-              for bk in banks[0]]
-        k2 = [[tuple(b[v] for b in bk) for v in range(V)]
-              for bk in banks[1]]
+                params.psf_rank, params.psf_rank_max_error, d)))
+            for ks in (psfs, k2s))
     elif backend == "lowrank":
         def fft_entry(k, d):
             return {"fft": prepare_kernel_fft(
@@ -480,7 +481,7 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
     imgs = shard(images, mesh, (view_axis, axis_name))
     ws = shard(weights, mesh, (view_axis, axis_name))
     del images, weights, psi0
-    Vl = imgs[0].shape[0]
+    Vl = mesh.first(imgs).shape[0]
     # global view of local view u at position p (views split over the
     # view axis, whole otherwise)
     v0 = [mesh.index(p, view_axis) * Vl if view_axis is not None else 0
@@ -530,7 +531,8 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
     def mat_conv(xs, mats, rads):
         """mats: per position the (Tz, My, Mx) of one phase; the band
         matrix's half-support hz is the halo and the band offset."""
-        hz = (mats[0][0].shape[-1] - mats[0][0].shape[-2]) // 2
+        Tz = mesh.first(mats)[0]
+        hz = (Tz.shape[-1] - Tz.shape[-2]) // 2
         xps = halo_exchange_z(xs, hz, mesh, axis_name)
         return each(lambda p, xp, m: conv_lowrank_folded_fused(
             xp, *m, rad_z=hz, rad_y=rads[1], rad_x=rads[2], z_off=hz),
@@ -559,20 +561,21 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
         ranks, the bf16 phase schedule (iteration + view), conv2 in delta
         form K2 (x) (q - 1), exact-FFT entries where a kernel missed its
         tolerance."""
-        mats = [e["mat"] for e in k1[0] + k2[0] if "mat" in e]
+        mats = [e["mat"] for e in mesh.first(k1) + mesh.first(k2)
+                if "mat" in e]
         n_phases = mats[0][0].shape[0] if mats else 1
 
         def conv(xs, ks, v, step):
-            e = ks[0][v]
+            e = mesh.first(ks)[v]
             if "fft" in e:
-                return fft_conv(xs, [k[v]["fft"] for k in ks])
+                return fft_conv(xs, each(lambda p, k: k[v]["fft"], ks))
             ph = step % n_phases
-            return mat_conv(xs, [tuple(M[ph] for M in k[v]["mat"])
-                                 for k in ks], e["rad"])
+            return mat_conv(xs, each(lambda p, k: tuple(
+                M[ph] for M in k[v]["mat"]), ks), e["rad"])
 
         def view_delta(p_, v, step):
             q = restore(quotient(conv(p_, k1, v, step), v))
-            if "mat" in k2[0][v]:
+            if "mat" in mesh.first(k2)[v]:
                 return conv(each(lambda p, x: x - 1.0, q), k2, v, step)
             return each(lambda p, c: c - 1.0, conv(q, k2, v, step))
 
@@ -597,11 +600,11 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
         advances per iteration here, the same for every view on every
         shard (the z-only engine advances it per view-update)."""
         (K1, rad1), (K2, rad2) = stacked
-        n_phases = K1[0][0].shape[1]
+        n_phases = mesh.first(K1[0]).shape[1]
 
         def conv(xs, K, rads, u, ph):
-            return mat_conv(xs, [tuple(M[u, ph] for M in trip)
-                                 for trip in zip(*K)], rads)
+            return mat_conv(xs, each(lambda p, *trip: tuple(
+                M[u, ph] for M in trip), *K), rads)
 
         for i in range(n_iter):
             ph = i % n_phases
@@ -617,7 +620,7 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
     def run_plain(psi):
         """FFT or separable backend."""
         def conv(xs, ks, u):
-            local = [ks[p][v0[p] + u] for p in range(mesh.size)]
+            local = each(lambda p, k: k[v0[p] + u], ks)
             if backend == "separable":
                 return sep_conv(xs, local)
             return fft_conv(xs, local)

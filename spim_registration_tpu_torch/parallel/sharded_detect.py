@@ -6,10 +6,11 @@ cross a shard boundary when the shard depth divides by the factor),
 computes the response on a block extended by the convolution halo plus a
 refinement margin (one `halo_exchange_z`), finds the extrema it owns and
 refines them sub-pixel locally. No shard sees the whole volume. On the
-host the per-shard peak lists are joined and a global top-k by |response|
-caps them, matching the single-device `detect_beads` /
-`detect_beads_dom` output (anisotropic sigmas and downsampling
-included). Each shard's peaks come from `ops.extrema.find_peaks`, which
+host the per-shard peak lists (padded (pos, val, ok), all-gathered first
+where the mesh spans processes, as the reference's `process_allgather`)
+are joined and a global top-k by |response| caps them, matching the
+single-device `detect_beads` / `detect_beads_dom` output (anisotropic
+sigmas and downsampling included). Each shard's peaks come from `ops.extrema.find_peaks`, which
 takes the segment top-k kernel (`segment_topk`) on a card wherever
 `max_peaks_per_shard` <= 4 rounds x the field's 512-segments.
 """
@@ -39,7 +40,12 @@ from spim_registration_tpu_torch.ops.gaussian import (
 )
 from spim_registration_tpu_torch.ops.integral import box_mean
 from spim_registration_tpu_torch.parallel.halo import halo_exchange_z
-from spim_registration_tpu_torch.parallel.mesh import Mesh, shard, shard_map
+from spim_registration_tpu_torch.parallel.mesh import (
+    Mesh,
+    allgather,
+    shard,
+    shard_map,
+)
 
 # margin so the iterative sub-pixel walk (<= max_iterations steps) stays
 # inside the extended block
@@ -104,7 +110,8 @@ def _collect(results, max_peaks: int):
 
 def _one_per_shard(mesh: Mesh, axis_name: str, results: list) -> list:
     """The results of the positions with coordinate 0 on every other axis
-    (the others hold the same shards)."""
+    (the others hold the same shards), from every process."""
+    results = allgather(results, mesh)
     out = []
     for p in range(mesh.size):
         coords = np.unravel_index(p, mesh.devices.shape)

@@ -84,9 +84,10 @@ def register_views(
       mesh: a `parallel.Mesh`: detection runs z-sharded over its last axis
         (`parallel.sharded_detect_beads`) and batched matching shards its
         pair axis over every position; the single-pair match, the
-        fallback matches and the solve run on the mesh's first device.
+        fallback matches and the solve run on the mesh's first device (of
+        this process, where the mesh spans processes).
     """
-    dev = mesh.device(0) if mesh is not None else resolve_device(device)
+    dev = mesh.first_device() if mesh is not None else resolve_device(device)
     V = len(volumes) if volumes is not None else len(points)
     timings: Dict[str, float] = {}
     ident = np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)

@@ -81,8 +81,9 @@ def assemble_normal_equations_sharded(mesh, axis: str, model: str,
     """Assembly over a mesh: the matches split over `axis` (rows padded to
     a multiple of its size with weight 0, which adds nothing), each shard
     assembled on its device and (H, g) summed over the axis (`psum`).
-    Inputs are host arrays; returns (H, g) on the device of the mesh's
-    first position."""
+    Inputs are host arrays; returns (H, g) on the device of this
+    process's first position (across processes every process holds the
+    sum)."""
     from spim_registration_tpu_torch.parallel.mesh import (
         psum,
         shard,
@@ -101,6 +102,6 @@ def assemble_normal_equations_sharded(mesh, axis: str, model: str,
             for c in (col_i, col_j)]
     parts = shard_map(lambda p, *a: assemble_normal_equations(
         model, n_free, *a), mesh, *f32, *cols)
-    H = psum([hg[0] for hg in parts], mesh, axis)
-    g = psum([hg[1] for hg in parts], mesh, axis)
-    return H[0], g[0]
+    H = psum(shard_map(lambda p, hg: hg[0], mesh, parts), mesh, axis)
+    g = psum(shard_map(lambda p, hg: hg[1], mesh, parts), mesh, axis)
+    return mesh.first(H), mesh.first(g)

@@ -31,6 +31,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def local_cards() -> list:
+    """This process's cards, cuda:0 .. cuda:n-1 of the cards it sees
+    (`CUDA_VISIBLE_DEVICES` picks them): the devices a mesh puts this
+    process's positions on. Raises as `resolve_device` without a card."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
 def on_device(dev: torch.device):
     """The context work on `dev` runs in: its card current on CUDA (the
     hand-written kernels launch on the current device's stream)."""

@@ -411,12 +411,14 @@ def test_cli_errors_exit_2(work, tmp_path, capsys, monkeypatch):
                      str(tmp_path / "f.npy")) == 2
     assert "not in dataset" in capsys.readouterr().err
     assert cli.NOT_PORTED == ()
-    # `--multihost` is not ported: argparse refuses it; a `--mesh` the
-    # grammar refuses exits 2 (tests/test_torch_cli_mesh.py runs the mesh)
-    with pytest.raises(SystemExit) as e:
-        _port_dev("fuse", xml, "--multihost")
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    # `--multihost` without COORDINATOR_ADDRESS runs as one process, whose
+    # errors exit 2 as any verb's; a `--mesh` the grammar refuses exits 2
+    # (tests/test_torch_cli_mesh.py runs the mesh, test_torch_multihost.py
+    # the processes)
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    assert _port_dev("fuse", xml, "--multihost", "--bbox", "nope", "--out",
+                     str(tmp_path / "f.npy")) == 2
+    assert "not in dataset" in capsys.readouterr().err
     assert _port_dev("detect", xml, "--mesh", "z") == 2
     assert "bad --mesh component" in capsys.readouterr().err
     # a dataset resaved by the reference (blosc zarr) on a machine

@@ -128,7 +128,7 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "core.micromanager", "core.dhm", "core.zarr_store",
                 "core.resave", "parallel", "parallel.mesh",
                 "parallel.halo", "parallel.sharded",
-                "parallel.sharded_detect")
+                "parallel.sharded_detect", "parallel.multihost")
 
 _IMPORT_NEW = r"""
 import importlib, sys
