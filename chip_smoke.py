@@ -33,7 +33,13 @@ package) and exits nonzero on any failure:
    cuBLAS products and a sum), the least time the card could take
    (bound) and its fraction of the measured time; for the z pass, the
    rows pass and their library calls also the time per call launched
-   back to back;
+   back to back; then phase `direct`: `ops.fftconv.direct_convolve` (one
+   cuDNN conv3d, with TF32 turned on around it) against `fft_convolve`
+   on the RL estimate with view 0's 19^3 PSF, both boundaries (nrmse <=
+   1e-5), with its, FFT's and the zpass + sl_rows pair's times; the DoG
+   of phase 8 as one conv3d with G1 - G2 against `dog_reference` (its
+   time is dog's library time); the exact conv of the kernel that
+   zfused's entry approximates (its time is zfused's library time);
 4. the detection path at the bench configuration (8 views x 256^3,
    `detect_beads_batch` and `detect_beads`): segtopk launches per batch,
    voxels/s, peaks per view; then segtopk against its plain version,
@@ -1013,6 +1019,141 @@ def phase_dog(vol: np.ndarray) -> dict:
             "plain_ms": times["plain_ms"], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+DIRECT_TOL = 1e-5       # nrmse of direct_convolve against fft_convolve
+DIRECT_REPS = 5
+
+
+def dev_nrmse(a: torch.Tensor, b: torch.Tensor) -> float:
+    """`nrmse` on the card, in float64, over the range of `b`."""
+    a, b = a.double(), b.double()
+    return float(((a - b) ** 2).mean().sqrt() / (b.max() - b.min()))
+
+
+def dog_as_one_kernel(s1, s2) -> np.ndarray:
+    """blur(s1) - blur(s2) as one non-separable kernel: the outer products
+    of `dog_taps`' 1-D taps, G1 zero-padded to G2's radius, less G2."""
+    from spim_registration_tpu_torch.ops.kernels import dog as kd
+
+    taps, radii = kd.dog_taps(s1, s2)
+    R = radii.max(axis=0)
+    out = np.zeros(tuple(2 * R + 1), np.float64)
+    for s, sign in ((0, 1.0), (1, -1.0)):
+        kz, ky, kx = (taps[s, a, :2 * radii[s, a] + 1].astype(np.float64)
+                      for a in range(3))
+        lo = R - radii[s]
+        out[lo[0]:lo[0] + kz.size, lo[1]:lo[1] + ky.size,
+            lo[2]:lo[2] + kx.size] += sign * np.einsum("i,j,k->ijk", kz, ky,
+                                                        kx)
+    return out.astype(np.float32)
+
+
+def phase_direct(runner, psfs, vol: np.ndarray, smi: str) -> dict:
+    """`ops.fftconv.direct_convolve` (one cuDNN `conv3d`) at full width:
+    (a) on the RL estimate (256^3 f32) with view 0's fixture PSF (19^3)
+    against `fft_convolve`, mirror and zero boundary, with TF32 turned on
+    around the calls (the function must keep f32 by itself), times of
+    single calls beside FFT's and the zpass + sl_rows pair's on that
+    PSF's staged entry; (b) the DoG of phase dog as one convolution with
+    G1 - G2 against `dog_reference`, its time the dog kernel's library
+    time; (c) the exact convolution of the kernel that phase kernels'
+    zfused entry approximates, its time zfused's library time."""
+    from spim_registration_tpu_torch.deconv.lucy_richardson import (
+        compound_kernels,
+    )
+    from spim_registration_tpu_torch.detect import (
+        DoGParameters,
+        effective_sigmas,
+    )
+    from spim_registration_tpu_torch.ops.fftconv import (
+        direct_convolve,
+        fft_convolve,
+        pad_shape_for,
+        prepare_kernel_fft,
+    )
+    from spim_registration_tpu_torch.ops.kernels import dog as kd
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+
+    psi = runner.psi0
+    n_vox = float(psi.numel())
+    k = torch.from_numpy(psfs[0]).cuda()
+    a = {"shape": list(psi.shape), "kernel": list(k.shape),
+         "f32_ops_bound_ms": 2 * n_vox * k.numel()
+         / PEAK_F32_OPS_PER_S * 1e3}
+    ok = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for b in ("mirror", "zero"):
+            d = direct_convolve(psi, k, b)
+            if not torch.backends.cudnn.allow_tf32:
+                raise AssertionError("direct_convolve left TF32 changed")
+            f = fft_convolve(psi, k, boundary=b)
+            a[f"nrmse_{b}"] = dev_nrmse(d, f)
+            a[f"finite_{b}"] = bool(torch.isfinite(d).all())
+            ok &= (a[f"nrmse_{b}"] <= DIRECT_TOL and a[f"finite_{b}"]
+                   and d.shape == psi.shape)
+            del d, f
+            a[f"direct_ms_{b}"] = cuda_ms(
+                lambda b=b: direct_convolve(psi, k, b), DIRECT_REPS)
+            a[f"fft_ms_{b}"] = cuda_ms(
+                lambda b=b: fft_convolve(psi, k, boundary=b), DIRECT_REPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    fs = pad_shape_for(psi.shape, k.shape)
+    kf = prepare_kernel_fft(k, fs)
+    a["fft_prepared_ms_mirror"] = cuda_ms(lambda: fft_convolve(
+        psi, None, kernel_fft=kf, fft_shape=fs), DIRECT_REPS)
+    del kf
+    e0 = runner.k1_ffts[0]
+    if "mat" in e0:
+        Mz, My, Mx = (M[0] for M in e0["mat"])
+        a["pair_rank"] = int(Mz.shape[0])
+        a["pair_ms"] = cuda_ms(lambda: lc.conv_lowrank_folded_fused(
+            psi, Mz, My, Mx, *e0["rad"]), DIRECT_REPS)
+    else:
+        a["pair_ms"] = "view 0's PSF runs on the FFT fallback"
+    torch.cuda.empty_cache()
+
+    params = DoGParameters(sigma=1.8, threshold=0.004)
+    s1 = effective_sigmas(params)
+    s2 = tuple(s * 2.0 ** (1.0 / params.steps_per_octave) for s in s1)
+    v = torch.from_numpy(vol).cuda()
+    v = (v - v.min()) / torch.clamp(v.max() - v.min(), min=1e-12)
+    g = torch.from_numpy(dog_as_one_kernel(s1, s2)).cuda()
+    err = float((direct_convolve(v, g, "mirror")
+                 - kd.dog_reference(v, s1, s2)).abs().max())
+    tol = 1e-5 * float(v.abs().max())
+    dog = {"shape": list(v.shape), "sigma1": list(s1), "sigma2": list(s2),
+           "kernel": list(g.shape), "max_abs_err": err, "tol": tol,
+           "ms": cuda_ms(lambda: direct_convolve(v, g, "mirror"),
+                         DIRECT_REPS)}
+    ok &= err <= tol
+    del v, g
+    torch.cuda.empty_cache()
+
+    kernels = list(psfs) + compound_kernels(psfs, runner.params.psf_type)
+    entries = list(runner.k1_ffts) + list(runner.k2_ffts)
+    top = max((i for i, e in enumerate(entries) if "mat" in e),
+              key=lambda i: entries[i]["mat"][0].shape[1])
+    kz = torch.from_numpy(np.asarray(kernels[top], np.float32)).cuda()
+    Mz, My, Mx = (M[0] for M in entries[top]["mat"])
+    exact = direct_convolve(psi, kz, "mirror")
+    zf = {"entry": ("k1" if top < len(psfs) else "k2")
+          + f"[{top % len(psfs)}]", "rank": int(Mz.shape[0]),
+          "kernel": list(kz.shape),
+          "lowrank_pair_vs_exact_nrmse": dev_nrmse(
+              lc.conv_lowrank_folded_fused(psi, Mz, My, Mx,
+                                           *entries[top]["rad"]), exact),
+          "exact_ms": cuda_ms(lambda: direct_convolve(psi, kz, "mirror"),
+                              DIRECT_REPS)}
+    del exact
+    torch.cuda.empty_cache()
+    emit({"phase": "direct", "nvidia_smi": smi, "tol_nrmse": DIRECT_TOL,
+          "a_rl_shape": a, "b_dog": dog, "c_zfused_exact": zf})
+    if not ok:
+        raise AssertionError("direct_convolve disagrees (phase direct)")
+    return {"dog_ms": dog["ms"], "zfused_exact_ms": zf["exact_ms"]}
 
 
 def write_store(path: str, vol: torch.Tensor):
@@ -3968,12 +4109,21 @@ def main() -> int:
     counts, runner = timed("rl", phase_rl, psfs, factors)
     timed("profile", phase_profile, runner)
     kernels = timed("kernels", phase_kernels, runner)
-    del runner
     vol = detection_volume()
+    direct = timed("direct", phase_direct, runner, psfs, vol, smi)
+    del runner
     counts["segtopk"] = timed("detect", phase_detect, vol)
     kernels["segtopk"] = timed("segtopk", phase_segtopk, vol)
     kernels["dog"] = timed("dog", phase_dog, vol)
     del vol
+    kernels["dog"]["library_ms"] = direct["dog_ms"]
+    kernels["dog"]["library"] = ("direct_convolve(vol, G1 - G2, 'mirror'): "
+                                 "one cuDNN conv3d")
+    kernels["zfused"]["library_ms"] = direct["zfused_exact_ms"]
+    kernels["zfused"]["library"] = ("direct_convolve of the kernel the "
+                                    "entry approximates (cuDNN conv3d, "
+                                    "f32): the exact conv that the lowrank "
+                                    "conv approximates")
     timed("match", phase_match)
     pipe = timed("pipeline", phase_pipeline)
     mesh = timed("mesh", phase_mesh, psfs, factors, pipe)

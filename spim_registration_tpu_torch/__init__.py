@@ -22,3 +22,9 @@ imports neither `jax` nor anything of `spim_registration_tpu`.
 """
 
 __version__ = "0.1.0"
+
+from spim_registration_tpu_torch.core.dataset import (  # noqa: F401,E402
+    Dataset,
+    ViewDescription,
+    ViewId,
+)

@@ -5,6 +5,7 @@ from spim_registration_tpu_torch.core.dataset import (  # noqa: F401
     Dataset,
     InterestPoints,
     ViewDescription,
+    ViewId,
     ViewTransform,
     identity_transform,
 )

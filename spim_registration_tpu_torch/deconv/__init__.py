@@ -16,3 +16,11 @@ from spim_registration_tpu_torch.deconv.psf import (  # noqa: F401
     extract_psf,
     gaussian_psf,
 )
+from spim_registration_tpu_torch.deconv.prep_streamed import (  # noqa: F401
+    prepare_views_streamed,
+)
+from spim_registration_tpu_torch.deconv.blocked import (  # noqa: F401
+    ArrayStore,
+    BlockedDeconvolutionInputs,
+    BlockedDeconvolutionRunner,
+)

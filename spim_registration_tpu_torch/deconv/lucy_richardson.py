@@ -29,7 +29,10 @@ Convolution backends:
   through the hand-written CUDA kernels (`ops/kernels/lowrank_conv.py`);
   False selects the plain torch chain. bf16 matrices are dithered over
   `lowrank_dither_phases` quantization phases;
-- "separable": per-rank pad+valid tap passes of the same CP form.
+- "separable": per-rank pad+valid tap passes of the same CP form;
+- any other string (the reference's documented "direct" included) runs
+  the "fft" path, as in the reference; `ops.fftconv.direct_convolve` is
+  a plain function that no engine calls.
 
 The iteration and view loops are Python loops (the reference's
 `fori_loop`/`scan`). The estimate psi is updated in place: each `run`
@@ -75,7 +78,8 @@ class DeconvolutionParameters:
     # "sequential": OSEM ordering, one view after another. "parallel":
     # simultaneous multi-view RL, update factor 1 + sum_v w_v (conv2_v - 1)
     scheme: str = "sequential"
-    # "fft" | "lowrank" | "separable" (module docstring)
+    # "fft" | "lowrank" | "separable"; any other string runs "fft"
+    # (module docstring)
     conv_backend: str = "fft"
     psf_rank: int = 16
     psf_rank_max_error: float = 0.05
@@ -370,7 +374,9 @@ class DeconvolutionRunner:
                                 self.fft_shape)}
             self.k1_ffts = tuple(k1_entries)
             self.k2_ffts = tuple(k2_entries)
-        elif params.conv_backend == "fft":
+        else:
+            # "fft", and as in the reference any other string ("direct",
+            # which no engine implements, included): the exact FFT path
             max_k = tuple(max(max(p.shape[d] for p in prep.psfs),
                               max(k.shape[d] for k in k2s))
                           for d in range(3))
@@ -383,8 +389,6 @@ class DeconvolutionRunner:
                 prepare_kernel_fft(torch.as_tensor(k, dtype=torch.float32,
                                                    device=dev),
                                    self.fft_shape) for k in k2s])
-        else:
-            raise ValueError(f"unknown conv_backend {params.conv_backend!r}")
 
         iw = self.images * self.weights
         wsum = self.weights.sum(dim=0)

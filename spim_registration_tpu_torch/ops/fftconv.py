@@ -10,6 +10,9 @@ cuFFT has no such fault, so the port does not carry that list. The
 cropped result does not depend on the FFT size as long as the mirror pad
 on each side is at least the kernel radius, so the port and the reference
 agree at float tolerance with different padded shapes.
+
+`direct_convolve` is the reference's direct form (one `conv3d`); as in
+the reference, no engine calls it.
 """
 
 from __future__ import annotations
@@ -88,6 +91,36 @@ def fft_convolve(img: torch.Tensor, kernel: torch.Tensor | None,
     out = torch.fft.irfftn(f * kernel_fft, s=x.shape)
     return out[lo[0]:lo[0] + img.shape[0], lo[1]:lo[1] + img.shape[1],
                lo[2]:lo[2] + img.shape[2]].to(img.dtype)
+
+
+def direct_convolve(img: torch.Tensor, kernel: torch.Tensor,
+                    boundary: str = "mirror") -> torch.Tensor:
+    """Direct 3D convolution: `conv3d` (cuDNN on the card) of the volume
+    padded by the kernel radius `k // 2` on both sides of each axis, with
+    `mirror_pad` or zeros, against the flipped kernel; float32
+    accumulation, cast back to img's dtype.
+
+    As in the reference, an even-length kernel axis gives an output one
+    longer than the image on that axis. bf16 operands are widened to f32
+    (their products are exact there), so the result agrees with the
+    reference's bf16 products summed in f32 within one bf16 ulp. TF32 is
+    off for the call whatever the global setting, so f32 stays full f32.
+    Not a backend of the RL engines (nor in the reference)."""
+    r = [k // 2 for k in kernel.shape]
+    x = img.to(torch.float32)
+    if boundary == "mirror":
+        for ax in range(3):
+            x = mirror_pad(x, r[ax], ax)
+    else:
+        x = torch.nn.functional.pad(x, (r[2], r[2], r[1], r[1], r[0], r[0]))
+    w = kernel.to(device=x.device, dtype=torch.float32).flip((0, 1, 2))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = torch.nn.functional.conv3d(x[None, None], w[None, None])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return out[0, 0].to(img.dtype)
 
 
 def direct_convolve_np(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:

@@ -454,10 +454,9 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
                                       max_z_taps=kshape[0])
         k2 = _sharded_lowrank_entries(k2s, zl, (Y, X), params, mesh,
                                       fft_entry, max_z_taps=kshape[0])
-    elif backend == "fft":
-        k1, k2 = spectra(psfs), spectra(k2s)
     else:
-        raise ValueError(f"unknown conv_backend {backend!r}")
+        # "fft", and as in the reference any other string: exact FFT
+        k1, k2 = spectra(psfs), spectra(k2s)
 
     osem = float(np.float32(params.osem_factor
                             if params.osem_factor is not None

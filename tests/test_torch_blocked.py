@@ -334,7 +334,9 @@ def test_blocked_rejects_what_it_cannot_run():
         BlockedDeconvolutionRunner(_inputs(), ArrayStore(np.zeros(
             SHAPE, np.float32)), DeconvolutionParameters(**_kw()),
             block_z=20, device="cpu")
-    for kw in (_kw("separable"), _kw(scheme="parallel")):
+    # the blocked engine runs only fft and lowrank, in both packages
+    # (the in-memory engines run any other backend string on FFT)
+    for kw in (_kw("separable"), _kw("direct"), _kw(scheme="parallel")):
         with pytest.raises(ValueError):
             BlockedDeconvolutionRunner(_inputs(), ArrayStore(np.zeros(
                 SHAPE, np.float32)), DeconvolutionParameters(**kw),

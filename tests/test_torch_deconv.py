@@ -219,11 +219,39 @@ def test_deconvolve_entry_point(preps):
     assert torch.equal(runner.psi0, start)
 
 
+@pytest.mark.parametrize("scheme", ["sequential", "parallel"])
+def test_other_conv_backend_runs_fft(preps, scheme):
+    """A `conv_backend` other than "separable" and "lowrank" runs the FFT
+    path, as in the reference (its documented "direct" included): bit
+    for bit the port's "fft", and the reference's "direct" at the FFT
+    tests' bound."""
+    ref, port = preps
+    kw = dict(num_iterations=3, scheme=scheme)
+    want = np.asarray(RefRunner(ref, RefParams(conv_backend="direct",
+                                               **kw)).run())
+    got = DeconvolutionRunner(port, DeconvolutionParameters(
+        conv_backend="direct", **kw), device="cpu").run()
+    fft = DeconvolutionRunner(port, DeconvolutionParameters(
+        conv_backend="fft", **kw), device="cpu").run()
+    assert torch.equal(got, fft)
+    assert _nrmse(got.numpy(), want) < 1e-5
+
+
+@pytest.mark.parametrize("scheme", ["sequential", "parallel"])
+def test_rl_separable_matches_reference(preps, scheme):
+    """The in-memory engine's separable backend (tap banks of the CP form,
+    decomposed by both packages from the same PSFs) at the f32 bound."""
+    ref, port = preps
+    kw = dict(num_iterations=4, scheme=scheme, conv_backend="separable")
+    want = np.asarray(RefRunner(ref, RefParams(**kw)).run())
+    got = DeconvolutionRunner(port, DeconvolutionParameters(**kw),
+                              device="cpu").run().numpy()
+    assert got.shape == SHAPE and np.all(np.isfinite(got))
+    assert _nrmse(got, want) < 1e-5
+
+
 def test_unknown_options_raise(preps):
     _, port = preps
-    with pytest.raises(ValueError, match="conv_backend"):
-        DeconvolutionRunner(port, DeconvolutionParameters(
-            conv_backend="direct"), device="cpu")
     runner = DeconvolutionRunner(port, dataclasses.replace(
         DeconvolutionParameters(), scheme="bogus"), device="cpu")
     with pytest.raises(ValueError, match="scheme"):

@@ -244,6 +244,20 @@ def test_sharded_deconvolve_fft_matches_reference(rng):
                                atol=2e-4)
 
 
+def test_sharded_other_conv_backend_runs_fft(rng):
+    """A `conv_backend` other than "separable" and "lowrank" runs the
+    sharded FFT path, as in the reference: bit for bit the port's "fft",
+    and the reference's sharded "direct" at the FFT test's bound."""
+    prep = _gauss_prep(rng)
+    rp, pp = _params(num_iterations=6, conv_backend="direct")
+    want = ref_parallel.sharded_deconvolve(prep, rp, _ref_mesh())
+    got = sharded_deconvolve(_views(prep), pp, _mesh())
+    fft = sharded_deconvolve(_views(prep), dataclasses.replace(
+        pp, conv_backend="fft"), _mesh())
+    np.testing.assert_array_equal(got, fft)
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4)
+
+
 def test_sharded_parallel_scheme_view_axis_matches_reference(rng):
     prep = _gauss_prep(rng, n_views=4)
     rp, pp = _params(num_iterations=5, scheme="parallel",

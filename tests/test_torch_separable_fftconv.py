@@ -166,6 +166,47 @@ def test_fft_convolve_matches_reference(rng, boundary):
         assert _nrmse(got, fftconv.direct_convolve_np(vol, k)) < 1e-5
 
 
+_DIRECT_CASES = {
+    # an odd non-cubic volume and kernel
+    "odd": ((23, 30, 27), (7, 5, 9)),
+    # an even kernel axis: the output is one longer on it
+    "even_axis": ((20, 18, 22), (6, 5, 7)),
+    # a volume axis (3) shorter than the kernel radius (4): symmetric
+    # tiling in mirror_pad
+    "short_axis": ((3, 24, 20), (9, 5, 7)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("boundary", ["mirror", "zero"])
+@pytest.mark.parametrize("case", sorted(_DIRECT_CASES))
+def test_direct_convolve_matches_reference(case, boundary, dtype):
+    """The same shape as the reference's `direct_convolve` (even axes
+    included) and the same values: f32 within 1e-5 x max|out|, bf16
+    (bf16 products summed in f32, then rounded) within one bf16 ulp of
+    max|out|."""
+    vshape, kshape = _DIRECT_CASES[case]
+    rng = np.random.default_rng(sum(vshape) + sum(kshape))
+    vol = rng.random(vshape).astype(np.float32)
+    k = rng.random(kshape).astype(np.float32)
+    k /= k.sum()
+    tdt = getattr(torch, dtype)
+    got = fftconv.direct_convolve(torch.from_numpy(vol).to(tdt),
+                                  torch.from_numpy(k).to(tdt),
+                                  boundary=boundary)
+    want = np.asarray(ref_fft.direct_convolve(
+        jnp.asarray(vol, dtype), jnp.asarray(k, dtype),
+        boundary=boundary), np.float32)
+    want_shape = tuple(s + 2 * (n // 2) - n + 1
+                       for s, n in zip(vshape, kshape))
+    assert got.dtype == tdt
+    assert tuple(got.shape) == want.shape == want_shape
+    m = float(np.abs(want).max())
+    tol = 1e-5 * m if dtype == "float32" else 2.0 ** (np.floor(np.log2(m))
+                                                      - 7)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+
+
 def test_fft_shape_policy_and_self_repeat(rng):
     shape = fftconv.pad_shape_for((256, 256, 256), (19, 19, 19))
     for s in shape:
