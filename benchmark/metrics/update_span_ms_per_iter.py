@@ -1,0 +1,22 @@
+"""Device milliseconds a Richardson-Lucy iteration in the `update` phase
+of the view updates (all but the convolutions: the quotient, its clamp,
+`q - 1`, the estimate's update and regularization): the `spim/rl.update`
+phases that `DeconvolutionRunner.run` marks with CUDA events while a
+profiler runs (`utils/profiling.py`), over the traced jobs' iterations.
+Nothing to read unless the port counted exactly the traced jobs' runs,
+or where no phase was timed on the device."""
+
+
+def read(trace):
+    from spim_registration_tpu_torch.utils import profiling
+
+    read_spans = getattr(profiling, "read_spans", None)
+    iters = trace.facts.get("iterations")
+    if read_spans is None or not iters:
+        return None
+    totals = read_spans()["totals"]
+    runs = totals.get("spim/rl.run", {}).get("count", 0)
+    ms = totals.get("spim/rl.update", {}).get("device_ms", 0.0)
+    if runs != trace.jobs or ms <= 0:
+        return None
+    return ms / (runs * iters)

@@ -267,31 +267,33 @@ def cmd_detect(args):
     from spim_registration_tpu_torch.core.xml_io import save_dataset
     from spim_registration_tpu_torch.detect.dog import detect_beads_dataset
     from spim_registration_tpu_torch.utils.manifest import write_manifest
+    from spim_registration_tpu_torch.utils.profiling import stage_timer
 
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
     mesh = _mesh_from_args(args)
-    if args.method == "dom":
-        from spim_registration_tpu_torch.detect.dom import detect_beads_dom
-        from spim_registration_tpu_torch.parallel.sharded_detect import (
-            sharded_detect_beads_dom,
-        )
+    with stage_timer("detect"):
+        if args.method == "dom":
+            from spim_registration_tpu_torch.detect.dom import detect_beads_dom
+            from spim_registration_tpu_torch.parallel.sharded_detect import (
+                sharded_detect_beads_dom,
+            )
 
-        pstr = (f"DoM r1={cfg.dom.radius1} r2={cfg.dom.radius2} "
-                f"t={cfg.dom.threshold}")
-        for vid in sorted(ds.views):
-            if mesh is not None:  # z-sharded DoM, never silently single
-                pts, resp = sharded_detect_beads_dom(
-                    ds.get_image(vid), cfg.dom, mesh,
-                    axis_name=mesh.axis_names[-1])
-            else:
-                pts, resp = detect_beads_dom(ds.get_image(vid), cfg.dom,
-                                             device=args.device)
-            ds.set_interest_points(vid, cfg.label, pts, resp,
-                                   parameters=pstr)
-    else:
-        detect_beads_dataset(ds, label=cfg.label, params=cfg.detection,
-                             device=args.device, mesh=mesh)
+            pstr = (f"DoM r1={cfg.dom.radius1} r2={cfg.dom.radius2} "
+                    f"t={cfg.dom.threshold}")
+            for vid in sorted(ds.views):
+                if mesh is not None:  # z-sharded DoM, never silently single
+                    pts, resp = sharded_detect_beads_dom(
+                        ds.get_image(vid), cfg.dom, mesh,
+                        axis_name=mesh.axis_names[-1])
+                else:
+                    pts, resp = detect_beads_dom(ds.get_image(vid), cfg.dom,
+                                                 device=args.device)
+                ds.set_interest_points(vid, cfg.label, pts, resp,
+                                       parameters=pstr)
+        else:
+            detect_beads_dataset(ds, label=cfg.label, params=cfg.detection,
+                                 device=args.device, mesh=mesh)
     if not _is_primary():
         return
     save_dataset(ds, args.xml)

@@ -41,6 +41,7 @@ works on its own copy of the starting estimate.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -62,6 +63,18 @@ from spim_registration_tpu_torch.ops.separable import (
     folded_conv_matrices,
 )
 from spim_registration_tpu_torch.utils.device import resolve_device
+from spim_registration_tpu_torch.utils.profiling import (
+    CONV,
+    RECORDER,
+    RL_RUN,
+    UPDATE,
+    PhaseTimer,
+    profiler_active,
+    span,
+)
+
+# the engine's span of a phase, iteration or view while tracing is off
+_OFF = contextlib.nullcontext()
 
 PSFType = str  # "independent" | "efficient_bayesian" | "optimization_i" | "optimization_ii"
 
@@ -149,19 +162,21 @@ def _folded_matrix_banks(kernels: Sequence[np.ndarray], img_shape,
     out, errs = [], []
     for i, k in enumerate(kernels):
         fac = factors[i] if factors is not None else None
-        az, ay, ax, err = decompose_for_rl(
-            np.asarray(k, np.float64), rank, max_error=float("inf"),
-            adapt_tol=adapt_tol, rank_hard=rank_hard, factors=fac)
-        errs.append(float(err))
-        if err > adapt_tol:
-            out.append({"kernel": np.asarray(k, np.float32)})
-            continue
-        mats = folded_conv_matrices(az, ay, ax, img_shape, dtype=np.float64)
-        triple = []
-        for M in mats:
-            stack = (_bf16_dither_stack(M, phases) if phases > 1
-                     else np.asarray(M, np.float32)[None])
-            triple.append(torch.from_numpy(stack).to(device).to(dtype))
+        with span("spim/deconv.decompose"):
+            az, ay, ax, err = decompose_for_rl(
+                np.asarray(k, np.float64), rank, max_error=float("inf"),
+                adapt_tol=adapt_tol, rank_hard=rank_hard, factors=fac)
+            errs.append(float(err))
+            if err > adapt_tol:
+                out.append({"kernel": np.asarray(k, np.float32)})
+                continue
+            mats = folded_conv_matrices(az, ay, ax, img_shape,
+                                        dtype=np.float64)
+            triple = []
+            for M in mats:
+                stack = (_bf16_dither_stack(M, phases) if phases > 1
+                         else np.asarray(M, np.float32)[None])
+                triple.append(torch.from_numpy(stack).to(device).to(dtype))
         rads = tuple((f.shape[1] - 1) // 2 for f in (az, ay, ax))
         out.append({"mat": tuple(triple), "rad": rads})
     return out, errs
@@ -171,8 +186,11 @@ def _stack_factor_banks(kernels: Sequence[np.ndarray], rank: int,
                         max_error: float, device=None):
     """Per-view CP factor banks (az, ay, ax), padded with zeros (centred)
     to common tap counts and ranks so they stack along the view axis."""
-    banks = [decompose_for_rl(np.asarray(k, np.float64), rank, max_error)
-             for k in kernels]
+    banks = []
+    for k in kernels:
+        with span("spim/deconv.decompose"):
+            banks.append(decompose_for_rl(np.asarray(k, np.float64), rank,
+                                          max_error))
     rmax = max(b[0].shape[0] for b in banks)
     out = []
     for d in range(3):
@@ -238,15 +256,21 @@ def compound_kernels(psfs: Sequence[np.ndarray], psf_type: PSFType
 
 def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
                 num_iterations, fft_shape, scheme="sequential",
-                conv_backend="fft", lowrank_fused=False):
+                conv_backend="fft", lowrank_fused=False, phases=None):
     """Run `num_iterations` RL iterations, updating `psi` IN PLACE.
 
     k1 / k2: per-view kernels — stacked spectra (V, ...) for the fft
     backend, (az, ay, ax) stacked factor banks for the separable backend,
-    per-view entry dicts for the lowrank backend."""
+    per-view entry dicts for the lowrank backend.
+
+    `phases`: None, or a `utils.profiling.PhaseTimer` that opens the
+    iteration and view spans and takes a lap after each phase of a view
+    update: `conv`, each call into a convolution; `update`, the rest (the
+    quotient, `q - 1`, the estimate's update and regularization)."""
     if scheme not in ("sequential", "parallel"):
         raise ValueError(f"unknown RL scheme {scheme!r}")
     V = images.shape[0]
+    lowrank = conv_backend == "lowrank"
 
     def regularize_(x):
         if lam is not None:
@@ -262,65 +286,73 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
         q = images[v] / torch.clamp(conv1, min=1e-12)
         return q.clamp_(0.0, 1e4)
 
-    if conv_backend == "lowrank":
+    if lowrank:
         mats = [e["mat"] for e in list(k1) + list(k2) if "mat" in e]
         n_phases = mats[0][0].shape[0] if mats else 1
 
         def conv(x, entry, step):
+            if "mat" not in entry:
+                return fft_conv(x, entry["fft"])
             mz, my, mx = (M[step % n_phases] for M in entry["mat"])
             if lowrank_fused:
                 return conv_lowrank_folded_fused(x, mz, my, mx, *entry["rad"])
             return conv_lowrank_folded(x, mz, my, mx)
+    elif conv_backend == "separable":
+        k1, k2 = ([tuple(b[v] for b in bank) for v in range(V)]
+                  for bank in (k1, k2))
 
-        def view_delta(psi, v, step):
-            e1, e2 = k1[v], k2[v]
-            conv1 = (conv(psi, e1, step) if "mat" in e1
-                     else fft_conv(psi, e1["fft"]))
-            q = quotient(v, conv1)
-            # (q (x) K2) - 1 in DELTA form K2 (x) (q - 1) on the matmul
-            # path: equal for a mass-1 kernel, but it cancels the bf16
-            # matrices' row-sum rounding and rounds the small field q-1
-            if "mat" in e2:
-                return conv(q - 1.0, e2, step)
-            return fft_conv(q, e2["fft"]) - 1.0
+        def conv(x, factors, step):
+            return conv_separable_lowrank(x, *factors)
+    else:
+        def conv(x, kfft, step):
+            return fft_conv(x, kfft)
 
-        # phase schedule (_i + v): the phase advances across iterations
-        # for every view
-        for i in range(num_iterations):
+    def view_delta(psi, v, step):
+        """(psi (x) K1 -> quotient) (x) K2, less 1."""
+        conv1 = conv(psi, k1[v], step)
+        if phases is not None:
+            phases.lap(CONV)
+        q = quotient(v, conv1)
+        # on the matmul path in DELTA form K2 (x) (q - 1): equal for a
+        # mass-1 kernel, but it cancels the bf16 matrices' row-sum
+        # rounding and rounds the small field q - 1
+        delta = lowrank and "mat" in k2[v]
+        if delta:
+            q = q - 1.0
+        if phases is not None:
+            phases.lap(UPDATE)
+        conv2 = conv(q, k2[v], step)
+        if phases is not None:
+            phases.lap(CONV)
+        return conv2 if delta else conv2 - 1.0
+
+    # the parallel scheme's sum starts at 1 on the lowrank path (the
+    # others add 1 to the sum of the views' terms)
+    acc0 = (torch.ones((), dtype=psi.dtype, device=psi.device)
+            if lowrank and scheme == "parallel" else None)
+    # lowrank phase schedule (i + v): the phase advances across
+    # iterations for every view
+    for i in range(num_iterations):
+        with _OFF if phases is None else phases.iteration():
             if scheme == "sequential":
                 for v in range(V):
-                    d = view_delta(psi, v, i + v)
-                    psi.mul_(1.0 + osem * weights[v] * d)
-                    regularize_(psi)
+                    with _OFF if phases is None else phases.view():
+                        d = view_delta(psi, v, i + v)
+                        psi.mul_(1.0 + osem * weights[v] * d)
+                        regularize_(psi)
+                        if phases is not None:
+                            phases.lap(UPDATE)
             else:
-                factor = torch.ones((), dtype=psi.dtype, device=psi.device)
+                acc = acc0
                 for v in range(V):
-                    factor = factor + weights[v] * view_delta(psi, v, i + v)
-                regularize_(psi.mul_(factor))
-        return psi
-
-    if conv_backend == "separable":
-        def conv(x, v, bank):
-            return conv_separable_lowrank(x, *(b[v] for b in bank))
-    else:
-        def conv(x, v, spectra):
-            return fft_conv(x, spectra[v])
-
-    def view_conv2(psi, v):
-        return conv(quotient(v, conv(psi, v, k1)), v, k2)
-
-    for _ in range(num_iterations):
-        if scheme == "sequential":
-            for v in range(V):
-                conv2 = view_conv2(psi, v)
-                psi.mul_(1.0 + osem * weights[v] * (conv2 - 1.0))
-                regularize_(psi)
-        else:
-            acc = None
-            for v in range(V):
-                t = weights[v] * (view_conv2(psi, v) - 1.0)
-                acc = t if acc is None else acc + t
-            regularize_(psi.mul_(1.0 + acc))
+                    with _OFF if phases is None else phases.view():
+                        t = weights[v] * view_delta(psi, v, i + v)
+                        acc = t if acc is None else acc + t
+                        if phases is not None:
+                            phases.lap(UPDATE)
+                regularize_(psi.mul_(acc if lowrank else 1.0 + acc))
+                if phases is not None:
+                    phases.lap(UPDATE)
     return psi
 
 
@@ -331,6 +363,10 @@ class DeconvolutionRunner:
     def __init__(self, prep,
                  params: DeconvolutionParameters = DeconvolutionParameters(),
                  device=None):
+        with span("spim/deconv.stage"):
+            self._stage(prep, params, device)
+
+    def _stage(self, prep, params: DeconvolutionParameters, device) -> None:
         self.device = dev = resolve_device(device)
         self.params = params
         self.images = torch.as_tensor(prep.images, dtype=torch.float32,
@@ -339,7 +375,8 @@ class DeconvolutionRunner:
                                        device=dev)
         self.img_shape = tuple(self.images.shape[1:])
 
-        k2s = compound_kernels(prep.psfs, params.psf_type)
+        with span("spim/deconv.compound"):
+            k2s = compound_kernels(prep.psfs, params.psf_type)
         if params.conv_backend == "separable":
             self.fft_shape = None
             self.k1_ffts = _stack_factor_banks(
@@ -417,14 +454,27 @@ class DeconvolutionRunner:
              else self.params.num_iterations)
         start = self.psi0 if psi0 is None else torch.as_tensor(
             psi0, dtype=torch.float32, device=self.device)
-        return _rl_iterate(
-            start.clone(), self.images, self.weights, self.k1_ffts,
-            self.k2_ffts, float(np.float32(self.osem)), self.lam,
-            float(np.float32(self.params.min_value * self.avg)),
-            n, self.fft_shape, scheme=self.params.scheme,
-            conv_backend=self.params.conv_backend,
-            lowrank_fused=resolve_lowrank_fused(self.params.lowrank_fused,
-                                                self.device))
+
+        def iterate(phases=None):
+            return _rl_iterate(
+                start.clone(), self.images, self.weights, self.k1_ffts,
+                self.k2_ffts, float(np.float32(self.osem)), self.lam,
+                float(np.float32(self.params.min_value * self.avg)),
+                n, self.fft_shape, scheme=self.params.scheme,
+                conv_backend=self.params.conv_backend,
+                lowrank_fused=resolve_lowrank_fused(
+                    self.params.lowrank_fused, self.device),
+                phases=phases)
+
+        if not profiler_active():
+            return iterate()
+        # traced: the run's spans, and its phases timed in stream order
+        with span(RL_RUN, run_id=RECORDER.new_run_id()) as s:
+            phases = PhaseTimer(self.device, s.run_id)
+            try:
+                return iterate(phases)
+            finally:
+                phases.close()
 
     def run_checkpointed(self, checkpoint_every: int,
                          checkpoint_fn=None,

@@ -10,7 +10,6 @@ global solve is host float64 with device assembly for large match counts.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +29,7 @@ from spim_registration_tpu_torch.solve.global_opt import (
 )
 from spim_registration_tpu_torch.utils.device import resolve_device
 from spim_registration_tpu_torch.utils.log import get_logger
+from spim_registration_tpu_torch.utils.profiling import stage_timer
 
 logger = get_logger("pipeline")
 
@@ -94,75 +94,73 @@ def register_views(
     init = ([np.asarray(m, np.float64) for m in initial_models]
             if initial_models is not None else [ident.copy() for _ in range(V)])
 
-    t0 = time.time()
-    if points is None:
-        points = []
-        for i, vol in enumerate(volumes):
-            if mesh is not None:
-                from spim_registration_tpu_torch.parallel.sharded_detect \
-                    import sharded_detect_beads
+    with stage_timer("detect", timings):
+        if points is None:
+            points = []
+            for i, vol in enumerate(volumes):
+                if mesh is not None:
+                    from spim_registration_tpu_torch.parallel.sharded_detect \
+                        import sharded_detect_beads
 
-                pts, _ = sharded_detect_beads(
-                    np.asarray(vol), config.detection, mesh,
-                    axis_name=mesh.axis_names[-1])
-            else:
-                pts, _ = detect_beads(vol, config.detection, device=dev)
-            logger.info("detect view=%d points=%d", i, len(pts))
-            points.append(pts)
-    else:
-        points = [np.asarray(p) for p in points]
-    timings["detect"] = time.time() - t0
+                    pts, _ = sharded_detect_beads(
+                        np.asarray(vol), config.detection, mesh,
+                        axis_name=mesh.axis_names[-1])
+                else:
+                    pts, _ = detect_beads(vol, config.detection, device=dev)
+                logger.info("detect view=%d points=%d", i, len(pts))
+                points.append(pts)
+        else:
+            points = [np.asarray(p) for p in points]
 
     if pairs is None:
         pairs = [(i, j) for i in range(V) for j in range(i + 1, V)]
 
-    t0 = time.time()
-    matches: List[PairMatches] = []
+    with stage_timer("match", timings):
+        matches: List[PairMatches] = []
 
-    def _map(init_m, pts):
-        return pts @ init_m[:, :3].T + init_m[:, 3]
+        def _map(init_m, pts):
+            return pts @ init_m[:, :3].T + init_m[:, 3]
 
-    # Match in CALIBRATED space: descriptors are rotation-invariant, so
-    # the initial transforms (calibration / phase-corr init) must be
-    # applied to the points first — the reference likewise transforms
-    # interest points with the current model before pairwise matching
-    # (TransformationTools, SURVEY.md section 2.4).
-    cal_points = [_map(init[v], np.asarray(points[v])) for v in range(V)]
+        # Match in CALIBRATED space: descriptors are rotation-invariant, so
+        # the initial transforms (calibration / phase-corr init) must be
+        # applied to the points first — the reference likewise transforms
+        # interest points with the current model before pairwise matching
+        # (TransformationTools, SURVEY.md section 2.4).
+        cal_points = [_map(init[v], np.asarray(points[v])) for v in range(V)]
 
-    if len(pairs) > 1:
-        pair_results = match_pairs_batched(cal_points, pairs,
-                                           config.pairwise, device=dev,
-                                           mesh=mesh)
-    else:
-        pair_results = {
-            (i, j): match_pair(cal_points[i], cal_points[j],
-                               config.pairwise, seed=i * V + j, device=dev)
-            for (i, j) in pairs}
+        if len(pairs) > 1:
+            pair_results = match_pairs_batched(cal_points, pairs,
+                                               config.pairwise, device=dev,
+                                               mesh=mesh)
+        else:
+            pair_results = {
+                (i, j): match_pair(cal_points[i], cal_points[j],
+                                   config.pairwise, seed=i * V + j, device=dev)
+                for (i, j) in pairs}
 
-    failed = [p for p in pairs if not pair_results[p].valid]
-    if failed and config.fallback_method is not None \
-            and config.fallback_method != config.pairwise.method:
-        fb = dataclasses.replace(
-            config.pairwise, method=config.fallback_method,
-            ratio_of_distance=config.fallback_ratio_of_distance)
-        logger.info("retrying %d invalid pairs with %s", len(failed),
-                    config.fallback_method)
-        for (i, j) in failed:
-            res = match_pair(cal_points[i], cal_points[j], fb,
-                             seed=i * V + j + 7, device=dev)
-            if res.valid:
-                pair_results[(i, j)] = res
+        failed = [p for p in pairs if not pair_results[p].valid]
+        if failed and config.fallback_method is not None \
+                and config.fallback_method != config.pairwise.method:
+            fb = dataclasses.replace(
+                config.pairwise, method=config.fallback_method,
+                ratio_of_distance=config.fallback_ratio_of_distance)
+            logger.info("retrying %d invalid pairs with %s", len(failed),
+                        config.fallback_method)
+            for (i, j) in failed:
+                res = match_pair(cal_points[i], cal_points[j], fb,
+                                 seed=i * V + j + 7, device=dev)
+                if res.valid:
+                    pair_results[(i, j)] = res
 
-    for (i, j) in pairs:
-        res = pair_results[(i, j)]
-        logger.info("match pair=(%d,%d) %s", i, j, res)
-        if not res.valid or len(res.inliers) == 0:
-            continue
-        matches.append(PairMatches(
-            view_i=i, view_j=j,
-            p=cal_points[i][res.inliers[:, 0]],
-            q=cal_points[j][res.inliers[:, 1]]))
-    timings["match"] = time.time() - t0
+        for (i, j) in pairs:
+            res = pair_results[(i, j)]
+            logger.info("match pair=(%d,%d) %s", i, j, res)
+            if not res.valid or len(res.inliers) == 0:
+                continue
+            matches.append(PairMatches(
+                view_i=i, view_j=j,
+                p=cal_points[i][res.inliers[:, 0]],
+                q=cal_points[j][res.inliers[:, 1]]))
 
     if not matches:
         return RegistrationResult(
@@ -170,10 +168,9 @@ def register_views(
             global_result=None, mean_error=float("nan"),
             max_error=float("nan"), timings=timings)
 
-    t0 = time.time()
-    gres = solve_global(matches, fixed_views=list(fixed_views),
-                        params=config.global_opt, device=dev)
-    timings["solve"] = time.time() - t0
+    with stage_timer("solve", timings):
+        gres = solve_global(matches, fixed_views=list(fixed_views),
+                            params=config.global_opt, device=dev)
     logger.info("global solve: mean=%.4f max=%.4f px (%d iters)",
                 gres.mean_error, gres.max_error, gres.iterations)
 

@@ -1,16 +1,14 @@
 """Logging for the port's stages.
 
-The port's copy of the reference's `utils/log.py`: `get_logger`, and
-`Metrics`, per-stage metrics dumped as one JSON line.
+The port's copy of the reference's `utils/log.py`: `get_logger`. Stage
+times go through `utils/profiling.py` (`stage_timer`, spans) instead of
+the reference's `Metrics`.
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import sys
-import time
-from typing import Any, Dict
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -24,24 +22,3 @@ def get_logger(name: str) -> logging.Logger:
         logger.propagate = False
     return logger
 
-
-class Metrics:
-    """Accumulates per-stage metrics; one JSON-line dump at the end."""
-
-    def __init__(self):
-        self.data: Dict[str, Any] = {}
-        self._t0: Dict[str, float] = {}
-
-    def start(self, stage: str):
-        self._t0[stage] = time.time()
-
-    def stop(self, stage: str):
-        self.data[f"{stage}_s"] = time.time() - self._t0.pop(stage)
-
-    def set(self, key: str, value: Any):
-        self.data[key] = value
-
-    def dump(self, file=sys.stdout):
-        json.dump(self.data, file)
-        file.write("\n")
-        file.flush()

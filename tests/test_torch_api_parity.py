@@ -51,6 +51,10 @@ NAMES_BY_DESIGN = {
     ("utils/profiling.py", "xla_trace"):
         "an XLA trace; the port's is `trace`, a torch.profiler trace "
         "(--profile)",
+    ("utils/log.py", "Metrics"):
+        "a wall-clock stage timer with no device fence that no code of the "
+        "port called; stages are timed by `utils/profiling.stage_timer` "
+        "and its spans",
     ("models/affine.py", "fit_translation_batch"): _BATCH,
     ("models/affine.py", "fit_rigid_batch"): _BATCH,
     ("models/affine.py", "fit_similarity_batch"): _BATCH,

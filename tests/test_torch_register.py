@@ -81,6 +81,9 @@ def test_register_views_matches_reference(scene, method, monkeypatch):
         batched._bucket_pairs(V * (V - 1) // 2)))
     got = register_views(scene.volumes, convert.registration_config(ref_cfg),
                          device="cpu")
+    # each stage's seconds, the keys the benchmark's readers take
+    assert set(got.timings) == {"detect", "match", "solve"}
+    assert all(t >= 0 for t in got.timings.values())
     for g, w in zip(got.points, want.points):
         np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
     assert list(got.pair_results) == list(want.pair_results)

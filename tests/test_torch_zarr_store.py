@@ -18,7 +18,9 @@ sets exact, positions 1e-4 px, responses 1e-5 relative).
 """
 
 import filecmp
+import io
 import json
+import logging
 import os
 import shutil
 import sys
@@ -460,10 +462,19 @@ def test_cli_profile_writes_a_trace(raw, tmp_path):
     xml = _copy_raw(raw, tmp_path / "ds")
     assert cli.main(["define", str(tmp_path / "ds")]) == 0
     prof = tmp_path / "prof"
-    assert cli.main(["detect", xml, "--device", "cpu", "--profile",
-                     str(prof)]) == 0
+    out = io.StringIO()
+    handler = logging.StreamHandler(out)
+    log = logging.getLogger("spim.profile")
+    log.addHandler(handler)
+    try:
+        assert cli.main(["detect", xml, "--device", "cpu", "--profile",
+                         str(prof)]) == 0
+    finally:
+        log.removeHandler(handler)
     (trace,) = os.listdir(prof)
     assert trace.endswith(".pt.trace.json")
     events = json.load(open(prof / trace))["traceEvents"]
     assert any("conv" in e.get("name", "") or "matmul" in e.get("name", "")
                for e in events)
+    # the trace's exit logs each span recorded inside it
+    assert "span spim/detect: 1, " in out.getvalue()
