@@ -19,7 +19,8 @@ package) and exits nonzero on any failure:
    configuration (4 views x 256^3, the committed fixture PSFs,
    efficient-Bayesian, sequential, 20 iterations) with the lowrank
    backend on the kernels and with the exact FFT backend; kernel launch
-   counts over one lowrank run, throughput, the lowrank-vs-fft accuracy
+   counts over one lowrank run (the conv kernels and the view update's
+   two kernels), throughput, the lowrank-vs-fft accuracy
    gate after 5 iterations and each engine's self-repeat; then a
    `torch.profiler` trace of one lowrank run: device time by kernel and
    the device's idle share;
@@ -33,7 +34,12 @@ package) and exits nonzero on any failure:
    cuBLAS products and a sum), the least time the card could take
    (bound) and its fraction of the measured time; for the z pass, the
    rows pass and their library calls also the time per call launched
-   back to back; then phase `direct`: `ops.fftconv.direct_convolve` (one
+   back to back; then phase `rl_update`: the RL view update's two
+   kernels (`ops/kernels/rl_update.py`) in every form the engine uses,
+   bit for bit against their plain versions on the staged 256^3 image,
+   weight and estimate and on real convolutions of it (the lowrank
+   entry's output and the FFT path's strided crop), with times, the byte
+   bound and launches; then phase `direct`: `ops.fftconv.direct_convolve` (one
    cuDNN conv3d, with TF32 turned on around it) against `fft_convolve`
    on the RL estimate with view 0's 19^3 PSF, both boundaries (nrmse <=
    1e-5), with its, FFT's and the zpass + sl_rows pair's times; the DoG
@@ -314,11 +320,13 @@ def kernel_error(got, want) -> dict:
 def _counters():
     from spim_registration_tpu_torch.ops.kernels import dog as kd
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.kernels import rl_update as ru
     from spim_registration_tpu_torch.ops.kernels import segtopk as st
 
     return {"zpass": lc.zpass, "sl_rows": lc.sl_rows,
             "segtopk": st.segment_topk, "dog": kd.dog_fused,
-            "zfused": lc.zfused}
+            "zfused": lc.zfused, "rl_quotient": ru.rl_quotient,
+            "rl_update": ru.rl_update}
 
 
 def reset_launches() -> None:
@@ -739,6 +747,170 @@ def phase_kernels(runner) -> dict:
     }
 
 
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Bit-for-bit equality of two tensors (NaNs and signed zeros by their
+    bit patterns), with the count of elements that differ."""
+    g, w = got.contiguous(), want.contiguous()
+    if g.dtype != w.dtype or g.shape != w.shape:
+        return {"ok": False, "differ": None,
+                "dtypes": [str(g.dtype), str(w.dtype)]}
+    it = torch.int16 if g.element_size() == 2 else torch.int32
+    n = int((g.view(it) != w.view(it)).sum())
+    return {"ok": n == 0, "differ": n}
+
+
+def phase_rl_update(runner, psfs) -> dict:
+    """The RL view update's two kernels (`csrc/rl_update.cu`) through
+    their wrappers on the staged lowrank runner's 256^3 inputs: view 0's
+    image and weight, the estimate psi and real convolutions of psi: the
+    highest-rank matrix entry's lowrank conv (contiguous) and the FFT conv
+    of view 0's PSF (`fft_convolve`'s crop of the padded inverse
+    transform, a strided view), then the conv of each one's quotient.
+    Every form the engine uses (delta or not; a bf16 quotient or psi copy
+    or none; Tikhonov on and off) bit for bit against the plain versions,
+    one launch a call; times of the main path's forms (single calls,
+    back to back, profiler device time), their plain chains and the
+    bound: the bytes read and written once at 3.35 TB/s."""
+    from spim_registration_tpu_torch.ops.fftconv import (
+        fft_convolve,
+        pad_shape_for,
+        prepare_kernel_fft,
+    )
+    from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+    from spim_registration_tpu_torch.ops.kernels import rl_update as ru
+
+    psi = runner.psi0
+    image, weight = runner.images[0], runner.weights[0]
+    osem = float(np.float32(runner.osem))
+    lam = runner.lam
+    min_value = float(np.float32(runner.params.min_value * runner.avg))
+    entries = [e for e in runner.k1_ffts + runner.k2_ffts if "mat" in e]
+    entry = max(entries, key=lambda e: e["mat"][0].shape[1])
+    mats = [M[0] for M in entry["mat"]]
+    k = torch.from_numpy(np.asarray(psfs[0], np.float32)).cuda()
+    fs = pad_shape_for(psi.shape, k.shape)
+    kf = prepare_kernel_fft(k, fs)
+
+    def lowrank_conv(x):
+        return lc.conv_lowrank_folded_fused(x, *mats, *entry["rad"])
+
+    def fft_conv(x):
+        return fft_convolve(x, None, kernel_fft=kf, fft_shape=fs,
+                            boundary="mirror")
+
+    # (conv1, conv2, the engine's delta form) of each backend
+    convs = {}
+    c1 = lowrank_conv(psi)
+    convs["lowrank"] = (c1, lowrank_conv(ru.rl_quotient_reference(
+        image, c1, True, True)), True)
+    c1 = fft_conv(psi)
+    convs["fft_crop"] = (c1, fft_conv(ru.rl_quotient_reference(image, c1)),
+                         False)
+    if convs["fft_crop"][0].is_contiguous() \
+            or convs["fft_crop"][0].stride(2) != 1:
+        raise AssertionError("the FFT conv is not a strided crop: "
+                             f"{convs['fft_crop'][0].stride()}")
+    torch.cuda.synchronize()
+    reset_launches()
+    cases, n_calls = {}, 0
+    for name, (c1, c2, _) in convs.items():
+        for delta in (False, True):
+            for bf16 in (False, True):
+                key = f"quotient_{name}_delta{int(delta)}_bf16{int(bf16)}"
+                cases[key] = same_bits(
+                    ru.rl_quotient(image, c1, delta, bf16),
+                    ru.rl_quotient_reference(image, c1, delta, bf16))
+                for lam_ in (lam, None):
+                    got, want = psi.clone(), psi.clone()
+                    out = ru.rl_update(got, c2, weight, osem, lam_,
+                                       min_value, delta, bf16)
+                    ref = ru.rl_update_reference(want, c2, weight, osem,
+                                                 lam_, min_value, delta,
+                                                 bf16)
+                    key = (f"update_{name}_delta{int(delta)}_copy"
+                           f"{int(bf16)}_lam{int(lam_ is not None)}")
+                    cases[key] = same_bits(got, want)
+                    cases[key + "_out"] = same_bits(out, ref)
+                    n_calls += 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(rl_quotient=len(convs) * 4, rl_update=n_calls)
+
+    n_vox = float(psi.numel())
+    scratch = psi.clone()
+    c1_lr, c2_lr, _ = convs["lowrank"]
+    c1_ft, c2_ft, _ = convs["fft_crop"]
+    # (kernel, form, call, plain chain, bytes a voxel: f32 reads and
+    # writes 4, a bf16 write 2)
+    forms = (
+        ("rl_quotient", "lowrank",
+         lambda: ru.rl_quotient(image, c1_lr, True, True),
+         lambda: ru.rl_quotient_reference(image, c1_lr, True, True), 10),
+        ("rl_quotient", "fft_crop",
+         lambda: ru.rl_quotient(image, c1_ft),
+         lambda: ru.rl_quotient_reference(image, c1_ft), 12),
+        ("rl_update", "lowrank",
+         lambda: ru.rl_update(scratch, c2_lr, weight, osem, lam, min_value,
+                              True, True),
+         lambda: ru.rl_update_reference(scratch, c2_lr, weight, osem, lam,
+                                        min_value, True, True), 18),
+        ("rl_update", "fft_crop",
+         lambda: ru.rl_update(scratch, c2_ft, weight, osem, lam, min_value),
+         lambda: ru.rl_update_reference(scratch, c2_ft, weight, osem, lam,
+                                        min_value), 16),
+    )
+    times = {}
+    for kernel, form, fn, plain, per_vox in forms:
+        n_bytes = n_vox * per_vox
+        bound, by = bound_ms(n_bytes, 0.0)
+        t = {"ms": cuda_ms(fn, 20), "ms_pipelined": cuda_ms_pipelined(fn, 50),
+             "ms_device": device_ms(fn), "plain_ms": cuda_ms(plain, 10),
+             "bytes": n_bytes, "bound_ms": bound, "bound_by": by}
+        t["frac_of_bound"] = bound / t["ms"]
+        t["frac_of_bound_device"] = bound / t["ms_device"]
+        times[f"{kernel}_{form}"] = t
+    del scratch, convs, c1_lr, c2_lr, c1_ft, c2_ft, kf
+    bad = [key for key, c in cases.items() if not c["ok"]]
+    emit({"phase": "rl_update", "shape": list(psi.shape),
+          "entry_rank": int(mats[0].shape[0]), "rad": list(entry["rad"]),
+          "lam": lam, "osem": osem, "min_value": min_value,
+          "cases": cases, "launches": launches,
+          "expected_launches": expected, "times_ms": times})
+    if bad:
+        raise AssertionError(f"rl_update kernels differ from their plain "
+                             f"versions: {bad}")
+    if launches != expected:
+        raise AssertionError(f"rl_update launches {launches}, expected "
+                             f"{expected}")
+    out = {}
+    for kernel, what in (
+            ("rl_quotient", "q = clamp(image / clamp_min(conv1, 1e-12), 0, "
+                            "1e4) [- 1], f32 or bf16"),
+            ("rl_update", "psi = clamp_min(reg(psi * (1 + osem w d)), "
+                          "min) in place [+ bf16 copy]")):
+        main, crop = times[f"{kernel}_lowrank"], times[f"{kernel}_fft_crop"]
+        out[kernel] = {
+            "name": kernel, "route": "cuda",
+            "source": "spim_registration_tpu_torch/csrc/rl_update.cu",
+            "replaces": "the engine's plain elementwise chain "
+                        "(deconv/lucy_richardson.py); no TPU kernel",
+            "computes": what, "bitwise": True, "max_abs_err": 0.0,
+            "ms": main["ms"], "ms_pipelined": main["ms_pipelined"],
+            "ms_device": main["ms_device"], "plain_ms": main["plain_ms"],
+            "bytes": main["bytes"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "frac_of_bound": main["frac_of_bound"],
+            "frac_of_bound_device": main["frac_of_bound_device"],
+            "fft_crop_ms_device": crop["ms_device"],
+            "fft_crop_bound_ms": crop["bound_ms"],
+            "fft_crop_plain_ms": crop["plain_ms"],
+            "library_ms": None,
+            "library": "none: the plain version is a chain of PyTorch "
+                       "elementwise kernels (plain_ms)"}
+    return out
+
+
 def zfused_plan_info(lc, shape, rads):
     """The package's `zfused_plan` for a shape and half-supports as a
     dict (tile rows, windows, x stage rows, shared memory, MACs a voxel
@@ -795,12 +967,12 @@ def zfused_alone() -> None:
         got = lc.zfused(vm, *mats, h, h, h)
         errs = {"plain": kernel_error(got, conv_lowrank_folded(vol, *mats)),
                 "pair": kernel_error(got, lc.conv_lowrank_folded_fused(
-                    vm, *mats, h, h, h))}
+                    vm, *mats, h, h, h).to(vm.dtype))}
         del got
         bad += [f"{name} {k}" for k, e in errs.items() if not e["ok"]]
         times = {"ms": cuda_ms(lambda: lc.zfused(vm, *mats, h, h, h), 10),
                  "pair_ms": cuda_ms(lambda: lc.conv_lowrank_folded_fused(
-                     vm, *mats, h, h, h), 10)}
+                     vm, *mats, h, h, h).to(vm.dtype), 10)}
         emit({"phase": "zfused", "case": name, "rank": rank, "shape": n,
               "plan": zfused_plan_info(lc, (n, n, n), (h, h, h)),
               "errors": errs, "times_ms": times})
@@ -853,7 +1025,7 @@ def phase_zfused(entry, psi) -> dict:
              "plain_ms": cuda_ms(lambda: conv_lowrank_folded(vm, Mz, My, Mx),
                                  3),
              "pair_ms": cuda_ms(lambda: lc.conv_lowrank_folded_fused(
-                 vm, Mz, My, Mx, *rads), 10)}
+                 vm, Mz, My, Mx, *rads).to(vm.dtype), 10)}
     # the kernel reads only the band of each matrix: its nonzeros
     nnz = lambda M: float((M != 0).sum())              # noqa: E731
     n_bytes = float(vm.numel() * 2 + Z * Y * X * 4) \
@@ -905,7 +1077,7 @@ def zfused_512(rng) -> dict:
         return lc.zfused(vm, *mats, h, h, h)
 
     def pair():
-        return lc.conv_lowrank_folded_fused(vm, *mats, h, h, h)
+        return lc.conv_lowrank_folded_fused(vm, *mats, h, h, h).to(vm.dtype)
 
     err = kernel_error(fused(), pair())
     torch.cuda.empty_cache()
@@ -1980,10 +2152,14 @@ def phase_rl(psfs, factors) -> tuple:
     emit(info)
     if not gate < GATE_TOL:
         raise AssertionError(f"lowrank vs fft gate {gate} >= {GATE_TOL}")
+    views = N_ITER * N_VIEWS
+    info["expected_update_launches"] = views
     if counts != {"zpass": expected, "sl_rows": expected, "segtopk": 0,
-                  "dog": 0, "zfused": 0}:
+                  "dog": 0, "zfused": 0, "rl_quotient": views,
+                  "rl_update": views}:
         raise AssertionError(f"kernel launches {counts}, expected "
-                             f"{expected} of zpass and sl_rows")
+                             f"{expected} of zpass and sl_rows and "
+                             f"{views} of rl_quotient and rl_update")
     return counts, lowrank
 
 
@@ -4109,6 +4285,7 @@ def main() -> int:
     counts, runner = timed("rl", phase_rl, psfs, factors)
     timed("profile", phase_profile, runner)
     kernels = timed("kernels", phase_kernels, runner)
+    kernels.update(timed("rl_update", phase_rl_update, runner, psfs))
     vol = detection_volume()
     direct = timed("direct", phase_direct, runner, psfs, vol, smi)
     del runner
@@ -4139,7 +4316,7 @@ def main() -> int:
     launches_formats = timed("formats", phase_formats)
     emit({"phase": "walls", "seconds": walls,
           "total_s": time.perf_counter() - t_start})
-    for name in ("zpass", "sl_rows", "segtopk"):
+    for name in ("zpass", "sl_rows", "segtopk", "rl_quotient", "rl_update"):
         kernels[name]["launches"] = counts[name]
     kernels["segtopk"]["launches_timelapse"] = launches_timelapse["series"]
     kernels["segtopk"]["launches_timelapse_config5"] = \
@@ -4151,7 +4328,8 @@ def main() -> int:
         kernels[name]["max_abs_err_mesh_shard"] = mesh["errors"][name]
         kernels[name]["launches_multihost"] = multihost[name]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
-                                           "dog", "zfused")]})
+                                           "dog", "zfused", "rl_quotient",
+                                           "rl_update")]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -55,6 +55,13 @@ from spim_registration_tpu_torch.ops.fftconv import (
 )
 from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
     conv_lowrank_folded_fused,
+    operand_dtype,
+)
+from spim_registration_tpu_torch.ops.kernels.rl_update import (
+    regularize_,
+    rl_quotient,
+    rl_quotient_reference,
+    rl_update,
 )
 from spim_registration_tpu_torch.ops.separable import (
     conv_lowrank_folded,
@@ -263,6 +270,15 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
     backend, (az, ay, ax) stacked factor banks for the separable backend,
     per-view entry dicts for the lowrank backend.
 
+    In the sequential scheme the elementwise work around the convolutions
+    runs through `ops/kernels/rl_update.py`: the quotient and the
+    estimate's update, each one kernel on CUDA tensors (their plain chain
+    on the CPU). Where a convolution runs on the lowrank kernels with bf16
+    matrices, its operand (the quotient, the estimate after the previous
+    view) is written in bf16 by the pass that computes it; the first view
+    of a run casts inside its convolution. The parallel scheme runs the
+    plain chain.
+
     `phases`: None, or a `utils.profiling.PhaseTimer` that opens the
     iteration and view spans and takes a lap after each phase of a view
     update: `conv`, each call into a convolution; `update`, the rest (the
@@ -272,19 +288,18 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
     V = images.shape[0]
     lowrank = conv_backend == "lowrank"
 
-    def regularize_(x):
-        if lam is not None:
-            x.div_(1.0 + lam * x)
-        return x.clamp_(min=min_value)
-
     def fft_conv(x, kfft):
         return fft_convolve(x, None, kernel_fft=kfft, fft_shape=fft_shape,
                             boundary="mirror")
 
-    def quotient(v, conv1):
-        # clamp the quotient like the reference (no explosive updates)
-        q = images[v] / torch.clamp(conv1, min=1e-12)
-        return q.clamp_(0.0, 1e4)
+    sequential = scheme == "sequential"
+    quotient = rl_quotient if sequential else rl_quotient_reference
+
+    def bf16_operand(entry):
+        # the pass that computes a bf16 operand of the lowrank kernels
+        # writes it so (sequential scheme)
+        return (sequential and lowrank and lowrank_fused
+                and operand_dtype(entry) == torch.bfloat16)
 
     if lowrank:
         mats = [e["mat"] for e in list(k1) + list(k2) if "mat" in e]
@@ -307,50 +322,55 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
         def conv(x, kfft, step):
             return fft_conv(x, kfft)
 
-    def view_delta(psi, v, step):
-        """(psi (x) K1 -> quotient) (x) K2, less 1."""
-        conv1 = conv(psi, k1[v], step)
+    def view_conv2(x, v, step):
+        """(x (x) K1 -> quotient) (x) K2, and whether it is in DELTA form
+        (the quotient less 1)."""
+        conv1 = conv(x, k1[v], step)
         if phases is not None:
             phases.lap(CONV)
-        q = quotient(v, conv1)
         # on the matmul path in DELTA form K2 (x) (q - 1): equal for a
         # mass-1 kernel, but it cancels the bf16 matrices' row-sum
         # rounding and rounds the small field q - 1
         delta = lowrank and "mat" in k2[v]
-        if delta:
-            q = q - 1.0
+        q = quotient(images[v], conv1, delta, bf16_operand(k2[v]))
         if phases is not None:
             phases.lap(UPDATE)
         conv2 = conv(q, k2[v], step)
         if phases is not None:
             phases.lap(CONV)
-        return conv2 if delta else conv2 - 1.0
+        return conv2, delta
 
     # the parallel scheme's sum starts at 1 on the lowrank path (the
     # others add 1 to the sum of the views' terms)
     acc0 = (torch.ones((), dtype=psi.dtype, device=psi.device)
-            if lowrank and scheme == "parallel" else None)
+            if lowrank and not sequential else None)
+    # the operand of the next conv of psi: psi, or its bf16 copy
+    x = psi
     # lowrank phase schedule (i + v): the phase advances across
     # iterations for every view
     for i in range(num_iterations):
         with _OFF if phases is None else phases.iteration():
-            if scheme == "sequential":
+            if sequential:
                 for v in range(V):
                     with _OFF if phases is None else phases.view():
-                        d = view_delta(psi, v, i + v)
-                        psi.mul_(1.0 + osem * weights[v] * d)
-                        regularize_(psi)
+                        conv2, delta = view_conv2(x, v, i + v)
+                        last = i == num_iterations - 1 and v == V - 1
+                        x = rl_update(psi, conv2, weights[v], osem, lam,
+                                      min_value, delta, not last and
+                                      bf16_operand(k1[(v + 1) % V]))
                         if phases is not None:
                             phases.lap(UPDATE)
             else:
                 acc = acc0
                 for v in range(V):
                     with _OFF if phases is None else phases.view():
-                        t = weights[v] * view_delta(psi, v, i + v)
+                        conv2, delta = view_conv2(psi, v, i + v)
+                        t = weights[v] * (conv2 if delta else conv2 - 1.0)
                         acc = t if acc is None else acc + t
                         if phases is not None:
                             phases.lap(UPDATE)
-                regularize_(psi.mul_(acc if lowrank else 1.0 + acc))
+                regularize_(psi.mul_(acc if lowrank else 1.0 + acc), lam,
+                            min_value)
                 if phases is not None:
                     phases.lap(UPDATE)
     return psi

@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("zpass", "sl_rows", "segtopk", "dog", "zfused")
+SOURCES = ("zpass", "sl_rows", "segtopk", "dog", "zfused", "rl_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -451,7 +451,10 @@ def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
     n_out + 2 rz) band over its halo rows (z_off = rz); the output has
     N rows. Where `a` would exceed `_A_SLAB_BYTES` the output rows run in
     slabs at full rank: the z-pass matrix rows are sliced to the slab and
-    the band centre shifts by the slab's first row."""
+    the band centre shifts by the slab's first row.
+
+    The kernels read `vol` in `operand_dtype`, the matrices' dtype (an
+    operand already in it is not cast); the output is their float32 sum."""
     P, Y, X = vol.shape
     N = Mz.shape[1]
     vm = vol.to(Mz.dtype).contiguous()
@@ -463,12 +466,19 @@ def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
 
     slabs = _z_slabs(N, Mz.shape[0], Y, X, Mz.element_size())
     if len(slabs) == 1:
-        return run(Mz, 0).to(vol.dtype)
+        return run(Mz, 0)
     out = torch.empty((N, My.shape[1], Mx.shape[1]), dtype=torch.float32,
                       device=vol.device)
     for s, e in slabs:
         out[s:e] = run(Mz[:, s:e], s)
-    return out.to(vol.dtype)
+    return out
+
+
+def operand_dtype(entry: dict):
+    """The dtype in which `conv_lowrank_folded_fused` reads the operand of
+    an RL engine's kernel entry: its matrices' dtype, or None for an entry
+    without matrices (an FFT fallback)."""
+    return entry["mat"][0].dtype if "mat" in entry else None
 
 
 def band_radius(M: torch.Tensor) -> int:

@@ -118,7 +118,8 @@ _NEW_MODULES = ("cli", "core.dataset", "core.xml_io", "core.imgloaders",
                 "utils.manifest", "ops.integral", "detect.dom", "detect.dog",
                 "ops.resample", "fuse.bounding_box", "fuse.weighted_avg",
                 "pipeline.config", "convert", "ops.kernels.dog",
-                "ops.kernels.lowrank_conv", "native_blocks",
+                "ops.kernels.lowrank_conv", "ops.kernels.rl_update",
+                "native_blocks",
                 "deconv.blocked", "deconv.prep_streamed", "fuse.streaming",
                 "match.centerofmass", "match.icp", "ops.phase_correlation",
                 "pipeline.phase_init", "detect.tune",
