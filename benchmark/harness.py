@@ -7,17 +7,37 @@ and a traffic mix. Everything else is found by name:
   acquisition, its sizes, `assumed` and `reduced`;
 - `traffic/<traffic>.json`: the job kind (`"job"`) and its parameters;
 - `jobs/<kind>.py`: `setup(config, traffic, seed, device)` returns the
-  cell's job (see `jobs/__init__.py` for what a job offers);
+  cell's job (see `jobs/__init__.py` for what a job offers); a cell of
+  `chips` n > 1 gets `setup(config, traffic, seed, device=cuda:0,
+  devices=[cuda:0, ..., cuda:n-1])`;
 - `limits/<cell>.json`: each number that decides `correct`, its limit and
   the readings the limit was set from;
 - `metrics/<name>.py`: `read(trace)` turns a traced run into one
   per-layer number, or None where the cell has nothing to read.
 
+The CPU tests under `tests/` find a cell's cut to test size by the same
+names: `tests/cuts/configs/<config>.json` (`tiny`: the configuration at
+test size; `cpu`: at the size the control runs at on the CPU, where the
+traffic's cut has a `cpu` key too), `tests/cuts/traffic/<traffic>.json`
+(`tiny`, and `cpu` where the control runs the cell's own traffic),
+`tests/cuts/limits/<cell>.json` (a limit that does not hold at test
+size), and the faults that a kind's timed path can have in
+`tests/faults/<kind>.py` (`FAULTS`; see `tests/faults/rl.py`).
+
+To add a configuration and a cell: the configuration's file and its
+entry in `configs`; a traffic file (and a job kind where no kind fits,
+with its faults file); `limits/<cell>.json`; a reader for each new
+per-layer metric; the cut files; the cell's entry in `workloads` and
+its name in the `workloads` of each metric it reports (a new metric's
+entry where it reports one). `tests/toy/` is such an addition, a job
+kind and a cell of two cards, that the tests add to a checkout.
+
 The loop is closed: each job starts when the one before it has returned,
 as a user's script works through the timepoints of a timelapse. The window
 starts jobs until `seconds` have passed; a rate is all the work of the
 jobs completed over the window's whole wall time, and the tail is taken
-over all of them.
+over all of them. A cell of several cards is synchronised, traced and
+read for its peak memory on each of them.
 """
 
 from __future__ import annotations
@@ -137,20 +157,32 @@ class Trace:
     stretch (name, start and length in microseconds on the profiler's
     clock), its wall (`window_s`) and the device's busy seconds, the jobs
     it held, the job's facts (`job.facts()`), the launch counters' growth
-    over the stretch and every window job's spans (`job.spans`)."""
+    over the stretch and every window job's spans (`job.spans`).
+
+    `device_ops` come as `profiler_events` gives them, each with its card
+    as a fourth entry. Over `cards` > 1, `busy_s_by_card` is the union of
+    each card's own operations and `busy_s` their mean, so that 1 - busy /
+    wall is the cards' mean idle share; on one card every operation is
+    the card's."""
 
     def __init__(self, device_ops, host_ops, window_s, jobs, facts,
-                 counters, spans):
-        self.device_ops = device_ops
+                 counters, spans, cards: int = 1):
+        self.device_ops = [op[:3] for op in device_ops]
         self.host_ops = host_ops
         self.window_s = window_s
         self.jobs = jobs
         self.facts = facts
         self.counters = counters
         self.spans = spans
-        self.intervals = merge_intervals(
-            (s, s + d) for _, s, d in device_ops)
-        self.busy_s = sum(e - s for s, e in self.intervals) / 1e6
+        by_card = [[] for _ in range(cards)]
+        for op in device_ops:
+            card = op[3] if cards > 1 else 0
+            if 0 <= card < cards:
+                by_card[card].append((op[1], op[1] + op[2]))
+        self.intervals_by_card = [merge_intervals(c) for c in by_card]
+        self.busy_s_by_card = [sum(e - s for s, e in iv) / 1e6
+                               for iv in self.intervals_by_card]
+        self.busy_s = sum(self.busy_s_by_card) / cards
 
     def kernel_seconds(self, pattern: str) -> float:
         return sum(d for n, _, d in self.device_ops if pattern in n) / 1e6
@@ -163,7 +195,8 @@ class Trace:
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time, and the idle gaps
         between them summed by the innermost host operation that was
-        running when each gap began."""
+        running when each gap began (each card's gaps between its own
+        operations, summed over the cards)."""
         by_op: dict = {}
         for n, _, d in self.device_ops:
             by_op[n] = by_op.get(n, 0.0) + d / 1e6
@@ -171,14 +204,15 @@ class Trace:
         host = sorted(self.host_ops, key=lambda h: h[1])
         starts = [h[1] for h in host]
         gaps: dict = {}
-        for (_, e0), (s1, _) in zip(self.intervals, self.intervals[1:]):
-            i = bisect.bisect_right(starts, e0)
-            name = "(no host operation)"
-            for n, s, d in reversed(host[max(0, i - 400):i]):
-                if s + d > e0:
-                    name = n
-                    break
-            gaps[name] = gaps.get(name, 0.0) + (s1 - e0) / 1e6
+        for iv in self.intervals_by_card:
+            for (_, e0), (s1, _) in zip(iv, iv[1:]):
+                i = bisect.bisect_right(starts, e0)
+                name = "(no host operation)"
+                for n, s, d in reversed(host[max(0, i - 400):i]):
+                    if s + d > e0:
+                        name = n
+                        break
+                gaps[name] = gaps.get(name, 0.0) + (s1 - e0) / 1e6
         idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:top]
         return {"device_ops": [[n[:160], v] for n, v in ops],
                 "idle_gaps": [[n[:160], v] for n, v in idle]}
@@ -196,7 +230,8 @@ def merge_intervals(intervals) -> list:
 
 def profiler_events(prof):
     """(device operations, host operations) of a finished
-    torch.profiler session as (name, start_us, length_us) lists."""
+    torch.profiler session as (name, start_us, length_us) lists, each
+    device operation with its card's index as a fourth entry."""
     from torch.autograd import DeviceType
 
     dev, host = [], []
@@ -204,7 +239,7 @@ def profiler_events(prof):
         rng = (e.name, float(e.time_range.start),
                float(e.time_range.elapsed_us()))
         if e.device_type == DeviceType.CUDA:
-            dev.append(rng)
+            dev.append((*rng, int(e.device_index)))
         elif e.device_type == DeviceType.CPU:
             host.append(rng)
     return dev, host
@@ -212,11 +247,42 @@ def profiler_events(prof):
 
 # --- one run ---------------------------------------------------------------
 
-def sync(device) -> None:
+def sync(devices) -> None:
+    """Waits for every card of `devices`."""
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def reset_peaks(devices) -> None:
+    """Starts each card's caching allocator and resets its peak memory."""
+    import torch
+
+    for d in devices:
+        if d.type == "cuda":
+            torch.empty(1, device=d)
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def read_peaks(devices) -> list:
+    """Each device's peak memory in bytes since `reset_peaks` (0 off a
+    card)."""
+    import torch
+
+    return [int(torch.cuda.max_memory_allocated(d)) if d.type == "cuda"
+            else 0 for d in devices]
+
+
+def free_cache(devices) -> None:
+    """Empties each card's caching allocator."""
+    import torch
+
+    for d in devices:
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
 
 
 def forbidden_modules() -> list:
@@ -240,28 +306,46 @@ def check_numbers(numbers: dict, limits: dict) -> tuple:
     return all(r[3] for r in rows), rows
 
 
+def start_job(cell: Cell, seed: int, devices, config: dict = None,
+              traffic: dict = None):
+    """The cell's job set up on `devices`, the cell's cards in order (the
+    cell's own configuration and traffic unless others are given): one
+    card's kind is called as `setup(config, traffic, seed, device)`,
+    several cards' as `setup(..., device=devices[0], devices=devices)`."""
+    mod = cell.job_module()
+    config = cell.config if config is None else config
+    traffic = cell.traffic if traffic is None else traffic
+    if len(devices) == 1:
+        return mod.setup(config, traffic, seed, devices[0])
+    return mod.setup(config, traffic, seed, device=devices[0],
+                     devices=list(devices))
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
-             t_start: float, device=None, log=sys.stderr,
+             t_start: float, devices=None, log=sys.stderr,
              control: bool = False) -> dict:
     """Set up, warm up, run the window and check one cell; returns the
-    result line (as a dict, its `checks` key last). `device` None means
-    the card the cell asks for; tests pass a CPU device. `control` adds
-    every number of the check (`readings`) and the control's numbers on
-    the same inputs (`control`), as `calibrate.py` reads them."""
+    result line (as a dict, its `checks` key last). `devices` None means
+    the cards the cell asks for, cuda:0 to cuda:n-1; tests pass CPU
+    devices, one for each card. `control` adds every number of the check
+    (`readings`) and the control's numbers on the same inputs
+    (`control`), as `calibrate.py` reads them."""
     import torch
 
-    if device is None:
+    if devices is None:
         if not torch.cuda.is_available():
             raise CellError("torch.cuda.is_available() is false")
         if torch.cuda.device_count() < cell.chips:
             raise CellError(f"{torch.cuda.device_count()} card(s), the cell "
                             f"asks for {cell.chips}")
-        device = torch.device("cuda", 0)
-        torch.empty(1, device=device)       # starts the caching allocator
-        torch.cuda.reset_peak_memory_stats(device)
-    job = cell.job_module().setup(cell.config, cell.traffic, seed, device)
+        devices = [torch.device("cuda", i) for i in range(cell.chips)]
+    if len(devices) != cell.chips:
+        raise CellError(f"{len(devices)} device(s) given, the cell asks "
+                        f"for {cell.chips}")
+    reset_peaks(devices)
+    job = start_job(cell, seed, devices)
     job.warm_up()
-    sync(device)
+    sync(devices)
     t0 = time.perf_counter()
     setup_s = t0 - t_start
 
@@ -276,7 +360,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     i = 0
     while time.perf_counter() < deadline or (trace and i < trace_end):
         if trace and i == TRACE_SKIP:
-            prof, traced = start_profile(device, job)
+            prof, traced = start_profile(devices, job)
         attempted += 1
         s = time.perf_counter() - t0
         try:
@@ -301,7 +385,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         del answer
         i += 1
         if prof is not None and i == trace_end:
-            traced = stop_profile(prof, traced, device, job)
+            traced = stop_profile(prof, traced, devices, job)
             prof = None
     window_s = (jobs_log[-1][1] if jobs_log else
                 time.perf_counter() - t0)
@@ -311,12 +395,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
               f"min {min(walls):.4f} median {np.median(walls):.4f} "
               f"max {max(walls):.4f} s", file=log)
 
-    mem = (torch.cuda.max_memory_allocated(device)
-           if device.type == "cuda" else 0)
+    mems = read_peaks(devices)
     result = {"correct": False, "attempted": attempted, "failed": failed}
     if trace:
         tr = Trace(*traced[:2], traced[2], job.trace_jobs, job.facts(),
-                   traced[3], spans)
+                   traced[3], spans, cards=len(devices))
         metrics = {}
         for m in cell.per_layer:
             v = cell.metric_reader(m["name"]).read(tr)
@@ -326,16 +409,17 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         metrics = end_to_end(jobs_log, window_s, setup_s, job.work,
                              cell.end_to_end)
     result["metrics"] = metrics
-    result["device"] = device_info(device, cell.chips, mem)
+    result["device"] = device_info(devices, mems)
     if trace:
         result["device"]["busy_s"] = tr.busy_s
         result["device"]["window_s"] = tr.window_s
+        if len(devices) > 1:
+            result["device"]["busy_s_per_card"] = tr.busy_s_by_card
         result["breakdown"] = tr.breakdown()
 
     job.free()
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    free_cache(devices)
     numbers = job.check(kept)
     if control:
         result["readings"] = numbers
@@ -348,20 +432,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     return result
 
 
-def start_profile(device, job):
+def start_profile(devices, job):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    if any(d.type == "cuda" for d in devices):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.__enter__()
-    sync(device)
+    sync(devices)
     return prof, (time.perf_counter(), job.counters())
 
 
-def stop_profile(prof, started, device, job):
-    sync(device)
+def stop_profile(prof, started, devices, job):
+    sync(devices)
     t1 = time.perf_counter()
     counts = job.counters()
     prof.__exit__(None, None, None)
@@ -371,15 +455,21 @@ def stop_profile(prof, started, device, job):
     return dev, host, t1 - t0, grown
 
 
-def device_info(device, chips: int, mem: int) -> dict:
+def device_info(devices, mems: list) -> dict:
+    """The result's `device`: the fullest card's peak memory, and over
+    several cards each card's (`memory_peak_bytes_per_card`)."""
     import torch
 
-    if device.type == "cuda":
-        return {"platform": "gpu",
-                "kind": torch.cuda.get_device_name(device),
-                "count": chips, "memory_peak_bytes": int(mem)}
-    return {"platform": "cpu", "kind": "cpu", "count": 1,
-            "memory_peak_bytes": 0}
+    if devices[0].type == "cuda":
+        info = {"platform": "gpu",
+                "kind": torch.cuda.get_device_name(devices[0]),
+                "count": len(devices), "memory_peak_bytes": max(mems)}
+    else:
+        info = {"platform": "cpu", "kind": "cpu", "count": len(devices),
+                "memory_peak_bytes": 0}
+    if len(devices) > 1:
+        info["memory_peak_bytes_per_card"] = mems
+    return info
 
 
 def report(result: dict, out=sys.stdout, err=sys.stderr) -> None:

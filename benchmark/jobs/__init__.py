@@ -1,6 +1,11 @@
 """Job kinds of the benchmark, one module each, named by a traffic file's
 `"job"`. A module offers `setup(config, traffic, seed, device)`, which
-makes the inputs from the seed, stages the port and returns a job with:
+makes the inputs from the seed, stages the port and returns a job. A kind
+that serves cells of several cards also takes the keyword `devices`: the
+harness calls it for a cell of `chips` n > 1 as `setup(config, traffic,
+seed, device=devices[0], devices=devices)`, with the cell's cards
+cuda:0 to cuda:n-1 in order (in the CPU tests, as many CPU devices), and
+for a cell of one card as before, without the keyword. The job has:
 
 - `work`: each rate metric's units in one job; `sample`: how many answers
   the harness keeps (a seeded sample), None for all; `trace_jobs`: the

@@ -5,7 +5,10 @@ port, and the import rules."""
 from __future__ import annotations
 
 import ast
+import bisect
+import contextlib
 import json
+import random
 import shutil
 import subprocess
 import sys
@@ -15,7 +18,18 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.tests.cells import REPO, tiny_checkout, write_json
+from benchmark.tests.cells import (
+    REPO,
+    TOY_CELL,
+    checkout,
+    cut_sizes,
+    cut_to_test_size,
+    faults_module,
+    planted,
+    read_cut,
+    tiny_checkout,
+    write_json,
+)
 from benchmark import harness, roofline
 from benchmark.reference import rl as ref
 
@@ -23,17 +37,27 @@ SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in SPEC["workloads"]])
-def test_every_cell_finds_its_files(workload):
-    cell = harness.Cell(workload)
-    assert cell.kind in ("rl", "register")
-    assert cell.job_module().setup
+def assert_finds_its_files(cell: harness.Cell) -> None:
+    """The cell's job kind, limits, metric readers and cuts are found by
+    name, and it reports `setup_s`, another end-to-end metric and a
+    per-layer metric."""
+    assert (cell.bench / "jobs" / f"{cell.kind}.py").is_file()
+    mod = cell.job_module()
+    assert callable(mod.setup) and callable(mod.control)
     assert cell.limits["numbers"]
     names = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in names and len(names) >= 2
     assert cell.per_layer
     for m in cell.per_layer:
         assert callable(cell.metric_reader(m["name"]).read)
+    for group, name in (("configs", cell.workload["config"]),
+                        ("traffic", cell.workload["traffic"])):
+        assert "tiny" in read_cut(cell.bench, group, name)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in SPEC["workloads"]])
+def test_every_cell_finds_its_files(workload):
+    assert_finds_its_files(harness.Cell(workload))
 
 
 def test_new_config_traffic_and_metric_need_only_files_and_entries(tmp_path):
@@ -70,13 +94,191 @@ def test_new_config_traffic_and_metric_need_only_files_and_entries(tmp_path):
     cell = harness.Cell("mvd2x24.fft3", root=root, bench=bench)
     assert cell.config["shape"] == [24, 24, 24]
     r = harness.run_cell(cell, 2**31 + 11, 0.3, False, time.perf_counter(),
-                         device=CPU)
+                         devices=[CPU])
     assert r["correct"], r["checks"]
     assert set(r["metrics"]) == {"rl_vupd_per_s", "job_p95_s", "setup_s"}
     r = harness.run_cell(cell, 2**31 + 11, 0.3, True, time.perf_counter(),
-                         device=CPU)
+                         devices=[CPU])
     assert r["metrics"]["jobs_traced"]["value"] == 1.0
     assert list(r)[-1] == "checks"
+
+
+def test_new_kind_and_a_two_card_cell_need_only_files_and_entries(
+        tmp_path, monkeypatch):
+    """A configuration, a job kind with its faults, cuts and a metric, and
+    a cell of two cards (`tests/toy/`), added as files and entries alone:
+    every lookup finds them, and the unchanged harness runs the cell on
+    two CPU devices, untraced and traced, hands the kind both, and waits
+    for and frees both; each fault of the kind comes out not correct."""
+    root = tiny_checkout(tmp_path, toy=True)
+    bench = root / "benchmark"
+    cell = harness.Cell(TOY_CELL, root=root, bench=bench)
+    assert (cell.chips, cell.kind) == (2, "toy")
+    assert_finds_its_files(cell)
+    assert cell.config["n"] == 32                   # its cut, found by name
+    assert cut_sizes(cell)[0]["n"] == 32
+    assert set(faults_module(bench, "toy").FAULTS) == {"unchanged",
+                                                       "altered"}
+    mod = cell.job_module()
+    handed, waited, freed = [], [], []
+
+    def setup(*a, **k):
+        handed.append(k.get("devices"))
+        return orig_setup(*a, **k)
+    orig_setup = mod.setup
+    monkeypatch.setattr(mod, "setup", setup)
+    monkeypatch.setattr(harness, "sync", waited.append)
+    monkeypatch.setattr(harness, "free_cache", freed.append)
+    two = [CPU, CPU]
+    r = harness.run_cell(cell, 2**31 + 13, 0.3, False, time.perf_counter(),
+                         devices=two)
+    assert r["correct"], r["checks"]
+    m = r["metrics"]
+    assert set(m) == {"toy_products_per_s", "job_p95_s.toy", "setup_s"}
+    assert m["toy_products_per_s"]["value"] > 0
+    assert m["job_p95_s.toy"]["value"] > 0
+    assert r["device"] == {"platform": "cpu", "kind": "cpu", "count": 2,
+                           "memory_peak_bytes": 0,
+                           "memory_peak_bytes_per_card": [0, 0]}
+    r = harness.run_cell(cell, 2**31 + 13, 0.3, True, time.perf_counter(),
+                         devices=two)
+    assert r["correct"], r["checks"]
+    assert r["metrics"] == {"toy_cards": {"value": 2.0, "unit": "cards"}}
+    assert r["device"]["busy_s_per_card"] == [0.0, 0.0]
+    assert r["device"]["busy_s"] == 0.0
+    assert handed == [two, two]
+    assert waited and all(d == two for d in waited)
+    assert freed == [two, two]
+    for fault in ("unchanged", "altered"):
+        with planted(cell, fault):
+            r = harness.run_cell(cell, 2**31 + 13, 0.2, False,
+                                 time.perf_counter(), devices=two)
+        assert r["correct"] is False, (fault, r["checks"])
+
+
+def test_a_cell_without_a_cut_fails_naming_the_file(tmp_path):
+    root = checkout(tmp_path, toy=True)
+    (root / "benchmark/tests/cuts/configs/toy2.json").unlink()
+    with pytest.raises(FileNotFoundError,
+                       match=r"cuts/configs/toy2\.json"):
+        cut_to_test_size(root)
+
+
+def test_every_card_is_waited_for_reset_read_and_freed(monkeypatch):
+    """`sync`, `reset_peaks`, `read_peaks` and `free_cache` act on each
+    card of a cell (torch.cuda faked: the CPU build has no card)."""
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    seen = []
+
+    @contextlib.contextmanager
+    def on(d):
+        seen.append(("current", d))
+        yield
+
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda d, name=name: seen.append((name, d)))
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda d: 100 + d.index)
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: seen.append(("empty_cache", None)))
+    monkeypatch.setattr(torch.cuda, "device", on)
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device: seen.append(("empty", device)))
+    harness.sync(cards)
+    harness.reset_peaks(cards)
+    assert harness.read_peaks(cards) == [100, 101]
+    harness.free_cache(cards)
+    assert seen == [("synchronize", cards[0]), ("synchronize", cards[1]),
+                    ("empty", cards[0]),
+                    ("reset_peak_memory_stats", cards[0]),
+                    ("empty", cards[1]),
+                    ("reset_peak_memory_stats", cards[1]),
+                    ("current", cards[0]), ("empty_cache", None),
+                    ("current", cards[1]), ("empty_cache", None)]
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card")
+    assert harness.device_info(cards, [100, 101]) == {
+        "platform": "gpu", "kind": "card", "count": 2,
+        "memory_peak_bytes": 101, "memory_peak_bytes_per_card": [100, 101]}
+
+
+def parent_arithmetic(device_ops, host_ops, top: int = 10) -> tuple:
+    """`busy_s` and `breakdown()` as the harness took them before it told
+    the cards apart: the union of every device operation."""
+    intervals = harness.merge_intervals((s, s + d) for _, s, d in device_ops)
+    busy_s = sum(e - s for s, e in intervals) / 1e6
+    by_op: dict = {}
+    for n, _, d in device_ops:
+        by_op[n] = by_op.get(n, 0.0) + d / 1e6
+    ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:top]
+    host = sorted(host_ops, key=lambda h: h[1])
+    starts = [h[1] for h in host]
+    gaps: dict = {}
+    for (_, e0), (s1, _) in zip(intervals, intervals[1:]):
+        i = bisect.bisect_right(starts, e0)
+        name = "(no host operation)"
+        for n, s, d in reversed(host[max(0, i - 400):i]):
+            if s + d > e0:
+                name = n
+                break
+        gaps[name] = gaps.get(name, 0.0) + (s1 - e0) / 1e6
+    idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:top]
+    return busy_s, {"device_ops": [[n[:160], v] for n, v in ops],
+                    "idle_gaps": [[n[:160], v] for n, v in idle]}
+
+
+def test_busy_and_idle_gaps_are_each_cards_own():
+    """Card 0 busy the whole stretch, card 1 its first and last quarter:
+    the cards' mean idle share is 25%, and card 1's gap is named by the
+    innermost host operation running as it began."""
+    dev = [("k0", 0.0, 600e3, 0), ("k0", 600e3, 400e3, 0),
+           ("k1", 0.0, 250e3, 1), ("k1", 750e3, 250e3, 1)]
+    host = [("spim/rl.view", 200e3, 100e3), ("aten::copy_", 240e3, 30e3)]
+    tr = harness.Trace(dev, host, 1.0, 1, {}, {}, [], cards=2)
+    assert tr.busy_s_by_card == [1.0, 0.5]
+    assert tr.busy_s == 0.75
+    assert tr.device_ops == [op[:3] for op in dev]
+    idle = harness.load_module(REPO / "benchmark/metrics/idle_share.rl.py",
+                               "test_metric_idle_share_rl").read(tr)
+    assert idle == pytest.approx(25.0)
+    assert tr.breakdown() == {"device_ops": [["k0", 1.0], ["k1", 0.5]],
+                              "idle_gaps": [["aten::copy_", 0.5]]}
+    # read as one card, the union of both is busy the whole stretch
+    assert harness.Trace(dev, host, 1.0, 1, {}, {}, []).busy_s == 1.0
+
+
+def test_one_card_trace_is_the_parents_arithmetic():
+    rng = random.Random(5)
+    dev = [(rng.choice("abcd"), rng.uniform(0, 1e6), rng.uniform(1, 3e3), 0)
+           for _ in range(400)]
+    host = [(rng.choice("xyz"), rng.uniform(0, 1e6), rng.uniform(1, 2e4))
+            for _ in range(200)]
+    busy_s, breakdown = parent_arithmetic([op[:3] for op in dev], host)
+    tr = harness.Trace(dev, host, 1.0, 3, {}, {}, [])
+    assert tr.busy_s == busy_s and tr.busy_s_by_card == [busy_s]
+    assert tr.breakdown() == breakdown
+    assert breakdown["idle_gaps"]
+
+
+@pytest.mark.cuda
+def test_the_toy_cell_runs_on_two_cards(tmp_path):
+    """The two-card toy cell at its own size on cuda:0 and cuda:1."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    root = checkout(tmp_path, toy=True)
+    cell = harness.Cell(TOY_CELL, root=root, bench=root / "benchmark")
+    for trace in (False, True):
+        r = harness.run_cell(cell, 2**31 + 17, 2.0, trace,
+                             time.perf_counter())
+        print(json.dumps({k: r[k] for k in ("metrics", "device", "checks")}))
+        assert r["correct"], r["checks"]
+        dev = r["device"]
+        assert dev["count"] == 2
+        assert min(dev["memory_peak_bytes_per_card"]) > 0
+        assert dev["memory_peak_bytes"] == max(
+            dev["memory_peak_bytes_per_card"])
+    assert min(dev["busy_s_per_card"]) > 0
+    assert dev["busy_s"] == pytest.approx(sum(dev["busy_s_per_card"]) / 2)
 
 
 def test_rate_and_p95_over_the_window():
