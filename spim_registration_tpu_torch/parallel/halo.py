@@ -49,7 +49,10 @@ def halo_exchange_z(xs: list, h: int, mesh: Mesh, axis_name: str = "z",
     Interior shard boundaries receive the neighbours' rows (multi-hop when
     h > zl); the global top and bottom h rows are mirror images
     (`boundary="mirror"`) or zeros ("zero"). Requires h <= Z - 1, Z the
-    depth over the axis."""
+    depth over the axis. Counters: `halo_exchange_z.exchanges` (calls
+    with h > 0) and `halo_exchange_z.peer_bytes` (the bytes their
+    `ppermute` hops moved between positions: h * Y * X * 4 a boundary and
+    direction for float32 shards of h <= zl rows)."""
     if h == 0:
         return list(xs)
     if boundary not in ("mirror", "zero"):
@@ -59,6 +62,8 @@ def halo_exchange_z(xs: list, h: int, mesh: Mesh, axis_name: str = "z",
     Z = n * zl
     if h > Z - 1:
         raise ValueError(f"halo {h} exceeds volume depth {Z} - 1")
+    halo_exchange_z.exchanges += 1
+    moved = ppermute.peer_bytes
 
     hops = -(-h // zl)
     r = h - (hops - 1) * zl      # rows taken from the outermost block
@@ -86,5 +91,10 @@ def halo_exchange_z(xs: list, h: int, mesh: Mesh, axis_name: str = "z",
             ext[rows] = 0 if src is None else ext[src]
         return ext
 
+    halo_exchange_z.peer_bytes += ppermute.peer_bytes - moved
     blocks = below[:0:-1] + [xs] + above[1:]
     return shard_map(extend, mesh, *blocks)
+
+
+halo_exchange_z.exchanges = 0
+halo_exchange_z.peer_bytes = 0

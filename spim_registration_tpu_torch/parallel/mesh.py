@@ -228,7 +228,9 @@ def ppermute(xs: list, mesh: Mesh, axis: str, shift: int) -> list:
     """Each position receives the tensor of the position `shift` before
     it along `axis` (i <- i - shift); positions without a source get
     zeros, as `lax.ppermute` gives them. Sources of another process
-    arrive in one `multihost.exchange` a call."""
+    arrive in one `multihost.exchange` a call. `ppermute.peer_bytes`
+    counts the bytes this process's positions received from another
+    position (from another card where each position has its own)."""
     out = [None] * mesh.size
     sends, recvs, remote = [], [], []
     me = multihost.process_index()
@@ -241,6 +243,8 @@ def ppermute(xs: list, mesh: Mesh, axis: str, shift: int) -> list:
                 dev = mesh.device(p)
                 out[p] = (torch.zeros_like(xs[p], device=dev) if q is None
                           else xs[q].to(dev, non_blocking=True))
+                if q is not None:
+                    ppermute.peer_bytes += out[p].nbytes
         elif mesh.owner(q) == me:        # q -> p, p on another process
             sends.append((xs[q], mesh.owner(p), p))
         elif mesh.is_local(p):
@@ -248,7 +252,11 @@ def ppermute(xs: list, mesh: Mesh, axis: str, shift: int) -> list:
             remote.append(p)
     for p, t in zip(remote, multihost.exchange(sends, recvs)):
         out[p] = t
+        ppermute.peer_bytes += t.nbytes
     return out
+
+
+ppermute.peer_bytes = 0
 
 
 def _crosses(mesh: Mesh, axis: str) -> bool:

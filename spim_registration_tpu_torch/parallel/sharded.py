@@ -20,11 +20,23 @@ between the kernels and the plain chain only in the in-memory engine).
 Inputs are host arrays (or tensors); outputs are host arrays, except
 `device_result`. Across processes (`parallel/multihost.py`) every
 process stages and runs its own positions, and the outputs are gathered
-to every process (`gather`, the reference's `process_allgather`).
+to every process (`gather`, the reference's `process_allgather`). The RL
+engine stages shard by shard (`stage_slabs`): a position receives its own
+z-slab of the views and computes its share of the starting estimate, so
+no whole stack is copied or multiplied on the host.
+
+Tracing (`utils/profiling.py`): the RL runner's staging is the span
+`spim/mesh.stage` (its kernel decompositions `spim/mesh.decompose`);
+while a profiler runs, a run is `spim/mesh.run` over `spim/mesh.iteration`
+and `spim/mesh.view`, and each card's stream time splits into the phases
+`spim/mesh.halo` (the exchange: peer copies and the extended slab),
+`spim/mesh.conv` (each convolution call) and `spim/mesh.update` (the
+rest). Counters: `halo_exchange_z.exchanges` / `.peer_bytes`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -57,11 +69,29 @@ from spim_registration_tpu_torch.ops.separable import mirror_indices
 from spim_registration_tpu_torch.parallel.halo import halo_exchange_z
 from spim_registration_tpu_torch.parallel.mesh import (
     Mesh,
+    allgather,
     gather,
     psum,
     shard,
     shard_map,
 )
+from spim_registration_tpu_torch.utils.device import on_device
+from spim_registration_tpu_torch.utils.profiling import (
+    MESH_CONV,
+    MESH_DECOMPOSE,
+    MESH_HALO,
+    MESH_ITERATION,
+    MESH_RUN,
+    MESH_STAGE,
+    MESH_UPDATE,
+    MESH_VIEW,
+    RECORDER,
+    PhaseTimer,
+    profiler_active,
+    span,
+)
+
+_OFF = contextlib.nullcontext()
 
 
 def _host(a) -> np.ndarray:
@@ -281,6 +311,126 @@ def _stacked_lowrank_matrices(kernels, zl, yx, params, factors=None):
     return tuple(torch.stack(s) for s in zip(*per_view)), rads
 
 
+# ------------------------------------------------------- staging (RL)
+
+def _stack_source(a) -> torch.Tensor:
+    """A (V, Z, Y, X) stack as a tensor, without a copy where it is one: a
+    tensor as it is (on the host or a card), a float32 array through
+    `torch.from_numpy` (another dtype converted to float32 once)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a)
+
+
+def _slab_rows(z0: int, zl: int, Z: int):
+    """The source rows of global rows [z0, z0 + zl) of a depth Z mirror-
+    extended past its end: a slice where all lie inside, else an index
+    tensor (row Z + d reads row Z - 2 - d); and how many lie inside."""
+    n_in = max(0, min(zl, Z - z0))
+    if n_in == zl:
+        return slice(z0, z0 + zl), zl
+    g = np.arange(z0, z0 + zl)
+    return torch.as_tensor(np.where(g < Z, g, 2 * (Z - 1) - g)), n_in
+
+
+def _stage_slab(img_src, w_src, z0: int, zl: int, Z: int, u0: int, Vl: int,
+                dev: torch.device) -> tuple:
+    """One position's slab: views [u0, u0 + Vl) of rows [z0, z0 + zl) of
+    the images and weights on `dev`, copied view by view (weights 0 past
+    Z: no signal there), and over all views of the slab, in view order,
+    iw = sum_v w_v img_v and wsum = sum_v w_v (past Z from the mirror
+    rows' weights) with their float64 sums over the rows inside Z."""
+    rows, n_in = _slab_rows(z0, zl, Z)
+    V, _, Y, X = img_src.shape
+
+    def take(src, v):
+        if isinstance(rows, slice):
+            return src[v, rows]
+        return src[v].index_select(0, rows.to(src.device))
+
+    imgs = torch.empty((Vl, zl, Y, X), dtype=torch.float32, device=dev)
+    ws = torch.empty_like(imgs)
+    iw = wsum = None
+    with on_device(dev):
+        for v in range(V):
+            mine = u0 <= v < u0 + Vl
+            img = imgs[v - u0] if mine else torch.empty_like(imgs[0])
+            w = ws[v - u0] if mine else torch.empty_like(imgs[0])
+            img.copy_(take(img_src, v), non_blocking=True)
+            w.copy_(take(w_src, v), non_blocking=True)
+            if iw is None:
+                iw, wsum = img * w, w.clone()
+            else:
+                iw += img * w
+                wsum += w
+        if n_in < zl:
+            ws[:, n_in:] = 0.0
+        sums = torch.stack([iw[:n_in].sum(dtype=torch.float64),
+                            wsum[:n_in].sum(dtype=torch.float64)])
+    return imgs, ws, sums, iw, wsum
+
+
+def stage_slabs(images, weights, mesh: Mesh, zl: int, Z: int,
+                min_value: float, axis_name: str = "z",
+                view_axis: Optional[str] = None) -> tuple:
+    """Shard-by-shard staging of a sharded RL run.
+
+    Each position of this process receives only its own z-slab (zl rows
+    at its index along `axis_name`, past the true depth Z the mirror
+    extension) of its views (all of them, or its block along
+    `view_axis`), copied view by view from `images` / `weights` ((V, Z,
+    Y, X) host arrays or tensors; from pinned host memory the copies run
+    asynchronously). Each card computes its slab's wsum and sum_v w_v
+    img_v, and their float64 sums; the mean is the sum of those scalars
+    over the z-slabs (gathered across processes) and nothing else of the
+    stack meets on the host. Positions on one device that hold the same
+    slab share its tensors.
+
+    Returns (imgs, ws, psi0, mean): per-position slabs (Vl, zl, Y, X) of
+    the images and weights, the starting estimate's shards (the weighted
+    mean of the views, the mean where no view weighs, floored at
+    min_value * mean), and the mean."""
+    img_src, w_src = _stack_source(images), _stack_source(weights)
+    V = img_src.shape[0]
+    nv = mesh.shape[view_axis] if view_axis is not None else 1
+    if V % nv:
+        raise ValueError(f"dimension 0 of size {V} does not split over "
+                         f"mesh axis {view_axis!r} of size {nv}")
+    Vl = V // nv
+    slabs, keys, sums = {}, [None] * mesh.size, [None] * mesh.size
+    for p in mesh.local_positions:
+        dev = mesh.device(p)
+        u0 = mesh.index(p, view_axis) * Vl if view_axis is not None else 0
+        keys[p] = (dev, mesh.index(p, axis_name), u0)
+        if keys[p] not in slabs:
+            slabs[keys[p]] = _stage_slab(img_src, w_src, keys[p][1] * zl,
+                                         zl, Z, u0, Vl, dev)
+        sums[p] = slabs[keys[p]][2]
+    iw_sum = w_sum = 0.0
+    for p, t in enumerate(allgather(sums, mesh)):
+        if view_axis is None or mesh.index(p, view_axis) == 0:
+            t = t.cpu()                       # every z-slab once
+            iw_sum += float(t[0])
+            w_sum += float(t[1])
+    mean = float(iw_sum / max(w_sum, 1e-9))
+    psi0 = {}
+    for dev, i, _ in slabs:
+        if (dev, i) not in psi0:
+            _, _, _, iw, wsum = next(v for k, v in slabs.items()
+                                     if k[:2] == (dev, i))
+            with on_device(dev):
+                psi0[dev, i] = torch.where(
+                    wsum > 1e-9, iw / wsum.clamp(min=1e-9),
+                    mean).clamp(min=min_value * mean)
+    imgs = [None if k is None else slabs[k][0] for k in keys]
+    ws = [None if k is None else slabs[k][1] for k in keys]
+    start = [None if k is None else psi0[k[:2]] for k in keys]
+    return imgs, ws, start, mean
+
+
 # ---------------------------------------------------------------- deconv
 
 def _mirror_restore_z(xs: list, Z_true: int, hr: int, mesh: Mesh,
@@ -351,10 +501,27 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
     The callable returns psi (Z, Y, X) on the host, or with
     `device_result` the list of per-position psi shards at the padded
     depth (`execute.padded_depth`; the true depth is
-    `execute.true_depth`)."""
-    images = _host(prep.images)
-    weights = _host(prep.weights)
-    V, Z, Y, X = images.shape
+    `execute.true_depth`). It also carries the staging's `mean` and
+    `floor` (min_value * mean in float32), the starting shards (`start`),
+    the shard depth (`slab_depth`), and on the z-sharded lowrank path the
+    first position's kernel entries (`entries`: k1 and k2 by view).
+
+    The staging, shard by shard (`stage_slabs`), is the span
+    `spim/mesh.stage` and ends once every card of this process has
+    finished it."""
+    with span(MESH_STAGE):
+        execute = _stage_runner(prep, params, mesh, axis_name, view_axis,
+                                device_result)
+        for d in dict.fromkeys(mesh.device(p) for p in mesh.local_positions):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+    return execute
+
+
+def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
+                  view_axis: Optional[str], device_result: bool):
+    """`sharded_deconvolution_runner`'s staging and its run."""
+    V, Z, Y, X = tuple(prep.images.shape)
     nz = mesh.shape[axis_name]
     scheme = params.scheme
     if view_axis is not None and scheme != "parallel":
@@ -425,9 +592,11 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
         # view-axis lowrank: ranks bucketed so the matrices stack over the
         # view axis; if any kernel misses the tolerance the whole job runs
         # the exact FFT backend (accuracy is never silently reduced)
-        s1 = _stacked_lowrank_matrices(psfs, zl, (Y, X), params,
-                                       factors=factors)
-        s2 = _stacked_lowrank_matrices(k2s, zl, (Y, X), params)
+        with span(MESH_DECOMPOSE):
+            s1 = _stacked_lowrank_matrices(psfs, zl, (Y, X), params,
+                                           factors=factors)
+        with span(MESH_DECOMPOSE):
+            s2 = _stacked_lowrank_matrices(k2s, zl, (Y, X), params)
         if s1 is None or s2 is None:
             backend = "fft"
         else:
@@ -449,11 +618,13 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
             return {"fft": prepare_kernel_fft(
                 torch.as_tensor(_fit(k), device=d), fshape)}
 
-        k1 = _sharded_lowrank_entries(psfs, zl, (Y, X), params, mesh,
-                                      fft_entry, factors=factors,
-                                      max_z_taps=kshape[0])
-        k2 = _sharded_lowrank_entries(k2s, zl, (Y, X), params, mesh,
-                                      fft_entry, max_z_taps=kshape[0])
+        with span(MESH_DECOMPOSE):
+            k1 = _sharded_lowrank_entries(psfs, zl, (Y, X), params, mesh,
+                                          fft_entry, factors=factors,
+                                          max_z_taps=kshape[0])
+        with span(MESH_DECOMPOSE):
+            k2 = _sharded_lowrank_entries(k2s, zl, (Y, X), params, mesh,
+                                          fft_entry, max_z_taps=kshape[0])
     else:
         # "fft", and as in the reference any other string: exact FFT
         k1, k2 = spectra(psfs), spectra(k2s)
@@ -463,23 +634,13 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
                             else prep.osem_factor))
     lam = float(np.float32(params.tikhonov_lambda))
     use_lam = params.tikhonov_lambda > 0
-    wsum = weights.sum(axis=0)
-    avg = float((images * weights).sum() / max(wsum.sum(), 1e-9))
-    psi0 = np.where(wsum > 1e-9, (images * weights).sum(axis=0)
-                    / np.maximum(wsum, 1e-9), avg).astype(np.float32)
-    psi0 = np.maximum(psi0, params.min_value * avg)
+    # shard by shard; a ragged depth's rows past Z mirror the data, with
+    # weights 0 there (no signal)
+    imgs, ws, psi_start, avg = stage_slabs(
+        prep.images, prep.weights, mesh, zl, Z, params.min_value,
+        axis_name, view_axis)
     minv = float(np.float32(params.min_value * avg))
-    if pad:  # mirror-extend the data; weights 0 beyond Z (no signal)
-        images = np.pad(images, ((0, 0), (0, pad), (0, 0), (0, 0)),
-                        mode="reflect")
-        weights = np.pad(weights, ((0, 0), (0, pad), (0, 0), (0, 0)))
-        psi0 = np.pad(psi0, ((0, pad), (0, 0), (0, 0)), mode="reflect")
     hr = max(1, 2 * pad - zl + 1) if pad else 0
-
-    psi_start = shard(psi0, mesh, (axis_name,))
-    imgs = shard(images, mesh, (view_axis, axis_name))
-    ws = shard(weights, mesh, (view_axis, axis_name))
-    del images, weights, psi0
     Vl = mesh.first(imgs).shape[0]
     # global view of local view u at position p (views split over the
     # view axis, whole otherwise)
@@ -489,6 +650,30 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
 
     def each(fn, *shards):
         return shard_map(fn, mesh, *shards)
+
+    timer = [None]      # a traced run's PhaseTimer
+
+    def lap(phase):
+        if timer[0] is not None:
+            timer[0].lap(phase)
+
+    def iteration():
+        return _OFF if timer[0] is None else timer[0].iteration()
+
+    def view():
+        return _OFF if timer[0] is None else timer[0].view()
+
+    def exchange(xs, depth):
+        """The halo exchange of a convolution, its phases marked: the
+        update before it, then the exchange."""
+        lap(MESH_UPDATE)
+        xps = halo_exchange_z(xs, depth, mesh, axis_name)
+        lap(MESH_HALO)
+        return xps
+
+    def convolved(out):
+        lap(MESH_CONV)
+        return out
 
     def restore(xs):
         if pad == 0:
@@ -502,16 +687,16 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
 
     def fft_conv(xs, kf):
         """kf: per position, the spectrum to apply there."""
-        xps = halo_exchange_z(xs, h, mesh, axis_name)
-        return each(lambda p, xp, k: _local_fft_conv(
-            xp, k, zl, h, ry, rx, fshape), xps, kf)
+        xps = exchange(xs, h)
+        return convolved(each(lambda p, xp, k: _local_fft_conv(
+            xp, k, zl, h, ry, rx, fshape), xps, kf))
 
     def sep_conv(xs, banks_):
         """Sum-of-separable conv: the z pass over exchanged halo rows, the
         y/x passes mirror-padded locally; factors flipped so the
         correlation-style `conv_axis_valid` computes true convolution."""
         hz = (banks_[0][0].shape[-1] - 1) // 2
-        xps = halo_exchange_z(xs, hz, mesh, axis_name)
+        xps = exchange(xs, hz)
 
         def f(p, xp, bank):
             az, ay, ax = (torch.flip(b, dims=(1,)) for b in bank)
@@ -525,17 +710,17 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
                 total = out if total is None else total + out
             return total
 
-        return each(f, xps, banks_)
+        return convolved(each(f, xps, banks_))
 
     def mat_conv(xs, mats, rads):
         """mats: per position the (Tz, My, Mx) of one phase; the band
         matrix's half-support hz is the halo and the band offset."""
         Tz = mesh.first(mats)[0]
         hz = (Tz.shape[-1] - Tz.shape[-2]) // 2
-        xps = halo_exchange_z(xs, hz, mesh, axis_name)
-        return each(lambda p, xp, m: conv_lowrank_folded_fused(
+        xps = exchange(xs, hz)
+        return convolved(each(lambda p, xp, m: conv_lowrank_folded_fused(
             xp, *m, rad_z=hz, rad_y=rads[1], rad_x=rads[2], z_off=hz),
-            xps, mats)
+            xps, mats))
 
     def quotient(conv1, v):
         """clip(img_v / conv1) at every position (v: local view)."""
@@ -579,17 +764,25 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
             return each(lambda p, c: c - 1.0, conv(q, k2, v, step))
 
         for i in range(n_iter):
-            if scheme == "sequential":
-                for v in range(V):
-                    psi = osem_update(psi, v, view_delta(psi, v, i + v))
-            else:
-                factor = each(lambda p, x: torch.ones((), device=x.device),
-                              psi)
-                for v in range(V):
-                    factor = each(lambda p, f, w, d, v=v: f + w[v] * d,
-                                  factor, ws, view_delta(psi, v, i + v))
-                psi = restore(each(lambda p, x, f: regularize(x * f),
-                                   psi, factor))
+            with iteration():
+                if scheme == "sequential":
+                    for v in range(V):
+                        with view():
+                            psi = osem_update(psi, v,
+                                              view_delta(psi, v, i + v))
+                            lap(MESH_UPDATE)
+                else:
+                    factor = each(lambda p, x: torch.ones(
+                        (), device=x.device), psi)
+                    for v in range(V):
+                        with view():
+                            factor = each(
+                                lambda p, f, w, d, v=v: f + w[v] * d,
+                                factor, ws, view_delta(psi, v, i + v))
+                            lap(MESH_UPDATE)
+                    psi = restore(each(lambda p, x, f: regularize(x * f),
+                                       psi, factor))
+                    lap(MESH_UPDATE)
         return psi
 
     def run_stacked(psi):
@@ -608,12 +801,17 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
         for i in range(n_iter):
             ph = i % n_phases
             partial = None
-            for u in range(Vl):
-                q = restore(quotient(conv(psi, K1, rad1, u, ph), u))
-                d = conv(each(lambda p, x: x - 1.0, q), K2, rad2, u, ph)
-                partial = add(partial, each(
-                    lambda p, w, dd, u=u: w[u] * dd, ws, d))
-            psi = parallel_update(psi, psum(partial, mesh, view_axis))
+            with iteration():
+                for u in range(Vl):
+                    with view():
+                        q = restore(quotient(conv(psi, K1, rad1, u, ph), u))
+                        d = conv(each(lambda p, x: x - 1.0, q), K2, rad2, u,
+                                 ph)
+                        partial = add(partial, each(
+                            lambda p, w, dd, u=u: w[u] * dd, ws, d))
+                        lap(MESH_UPDATE)
+                psi = parallel_update(psi, psum(partial, mesh, view_axis))
+                lap(MESH_UPDATE)
         return psi
 
     def run_plain(psi):
@@ -629,19 +827,25 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
             return conv(q, k2, u)
 
         for _ in range(n_iter):
-            if scheme == "parallel":
-                partial = None
-                for u in range(Vl):
-                    partial = add(partial, each(
-                        lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
-                        conv2(psi, u)))
-                if view_axis is not None:
-                    partial = psum(partial, mesh, view_axis)
-                psi = parallel_update(psi, partial)
-            else:
-                for v in range(V):
-                    psi = osem_update(psi, v, each(
-                        lambda p, c: c - 1.0, conv2(psi, v)))
+            with iteration():
+                if scheme == "parallel":
+                    partial = None
+                    for u in range(Vl):
+                        with view():
+                            partial = add(partial, each(
+                                lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
+                                conv2(psi, u)))
+                            lap(MESH_UPDATE)
+                    if view_axis is not None:
+                        partial = psum(partial, mesh, view_axis)
+                    psi = parallel_update(psi, partial)
+                    lap(MESH_UPDATE)
+                else:
+                    for v in range(V):
+                        with view():
+                            psi = osem_update(psi, v, each(
+                                lambda p, c: c - 1.0, conv2(psi, v)))
+                            lap(MESH_UPDATE)
         return psi
 
     if stacked is not None:
@@ -652,11 +856,30 @@ def sharded_deconvolution_runner(prep, params, mesh: Mesh,
         engine = run_plain
 
     def execute():
-        out = engine(psi_start)
+        if not profiler_active():
+            out = engine(psi_start)
+        else:
+            # traced: the run's spans, and each card's phases
+            with span(MESH_RUN, run_id=RECORDER.new_run_id()) as s:
+                timer[0] = PhaseTimer(
+                    [mesh.device(p) for p in mesh.local_positions],
+                    s.run_id, (MESH_HALO, MESH_CONV, MESH_UPDATE),
+                    (MESH_ITERATION, MESH_VIEW))
+                try:
+                    out = engine(psi_start)
+                finally:
+                    timer[0].close()
+                    timer[0] = None
         if device_result:
             return out
         return gather(out, mesh, (axis_name,))[:Z]
 
     execute.true_depth = Z
     execute.padded_depth = nz * zl
+    execute.slab_depth = zl
+    execute.mean = avg
+    execute.floor = minv
+    execute.start = psi_start
+    execute.entries = (None if stacked is not None or backend != "lowrank"
+                       else (mesh.first(k1), mesh.first(k2)))
     return execute

@@ -11,9 +11,11 @@ and the port's spans:
   parent span and run id. While a torch profiler runs, it also opens a
   profiler range of the same name, which lands among the profiler's host
   events on the clock of its device trace.
-- `PhaseTimer`: the conv and update phases of every Richardson-Lucy view
-  update of one run, marked with CUDA events in stream order (the host
-  clock for CPU tensors) and resolved only when the recorder is read.
+- `PhaseTimer`: the phases of every Richardson-Lucy view update of one
+  run (conv and update; halo, conv and update on each card of the
+  sharded engine's mesh), marked with CUDA events in stream order (the
+  host clock for CPU tensors) and resolved only when the recorder is
+  read; the recorder sums a phase over the cards and counts them.
 - `read_spans()` / `reset_spans()`: the recorder's totals and records.
 
 Span names carry the prefix `spim/`.
@@ -42,6 +44,16 @@ RL_ITERATION = "spim/rl.iteration"
 RL_VIEW = "spim/rl.view"
 CONV = "spim/rl.conv"
 UPDATE = "spim/rl.update"
+# the sharded engine (parallel/sharded.py): its staging (always on), its
+# spans while a profiler runs, and its three phases on each card
+MESH_STAGE = "spim/mesh.stage"
+MESH_DECOMPOSE = "spim/mesh.decompose"
+MESH_RUN = "spim/mesh.run"
+MESH_ITERATION = "spim/mesh.iteration"
+MESH_VIEW = "spim/mesh.view"
+MESH_HALO = "spim/mesh.halo"
+MESH_CONV = "spim/mesh.conv"
+MESH_UPDATE = "spim/mesh.update"
 
 
 def device_fence(x: torch.Tensor) -> None:
@@ -82,8 +94,9 @@ class SpanRecord(NamedTuple):
 
 class Recorder:
     """Spans of the process: totals by name (count, host seconds, device
-    ms) and the last `keep` records. Device phases wait unresolved until
-    the recorder is read, or until `max_pending` of them wait (then the
+    ms, and for a phase recorded on named cards the number of cards) and
+    the last `keep` records. Device phases wait unresolved until the
+    recorder is read, or until `max_pending` of them wait (then the
     newest is waited for)."""
 
     def __init__(self, keep: int = 4096, max_pending: int = 8192):
@@ -97,6 +110,7 @@ class Recorder:
     def reset(self) -> None:
         with self._lock:
             self._totals: Dict[str, list] = {}
+            self._cards: Dict[str, set] = {}
             self._records = collections.deque(maxlen=self.keep)
             self._pending: list = []
 
@@ -111,20 +125,23 @@ class Recorder:
         return next(self._run_ids)
 
     def add(self, rec: SpanRecord, host_s: float,
-            device_ms: float = 0.0) -> None:
+            device_ms: float = 0.0, card: Optional[str] = None) -> None:
         with self._lock:
             t = self._totals.setdefault(rec.name, [0, 0.0, 0.0])
             t[0] += 1
             t[1] += host_s
             t[2] += device_ms
+            if card is not None:
+                self._cards.setdefault(rec.name, set()).add(card)
             self._records.append(rec)
 
     def add_pending(self, name: str, pairs: list, parent: Optional[str],
-                    run_id: Optional[int]) -> None:
+                    run_id: Optional[int], card: Optional[str] = None
+                    ) -> None:
         """A device phase: `pairs` of recorded CUDA events, its
-        intervals."""
+        intervals; `card` names the card they were recorded on."""
         with self._lock:
-            self._pending.append((name, pairs, parent, run_id))
+            self._pending.append((name, pairs, parent, run_id, card))
             full = len(self._pending) >= self.max_pending
         if full:
             self._resolve()
@@ -132,20 +149,23 @@ class Recorder:
     def _resolve(self) -> None:
         with self._lock:
             pending, self._pending = self._pending, []
-        for name, pairs, parent, run_id in pending:
+        for name, pairs, parent, run_id, card in pending:
             pairs[-1][1].synchronize()
             ms = sum(a.elapsed_time(b) for a, b in pairs)
             self.add(SpanRecord(name, None, None, parent, run_id, ms),
-                     0.0, ms)
+                     0.0, ms, card)
 
     def read(self) -> dict:
-        """{"totals": {name: {"count", "host_s", "device_ms"}},
-        "records": [SpanRecord, ...]} (oldest record first)."""
+        """{"totals": {name: {"count", "host_s", "device_ms"[, "cards"]}},
+        "records": [SpanRecord, ...]} (oldest record first); "cards" is
+        there for a phase recorded on named cards."""
         self._resolve()
         with self._lock:
-            return {"totals": {n: {"count": c, "host_s": h, "device_ms": d}
-                               for n, (c, h, d) in self._totals.items()},
-                    "records": list(self._records)}
+            totals = {n: {"count": c, "host_s": h, "device_ms": d}
+                      for n, (c, h, d) in self._totals.items()}
+            for n, cards in self._cards.items():
+                totals[n]["cards"] = len(cards)
+            return {"totals": totals, "records": list(self._records)}
 
 
 RECORDER = Recorder()
@@ -195,46 +215,60 @@ class span:
 
 
 class PhaseTimer:
-    """The conv and update phases of every view update of one RL run.
+    """The phases of every view update of one RL run, on each device it
+    runs on: by default `conv` and `update` under the RL engine's
+    iteration and view spans; the sharded engine gives its mesh's cards
+    and `halo`, `conv` and `update` under its own spans.
 
-    `lap(phase)` closes the interval since the last lap, in stream order,
-    and gives it to `phase` of the open view; the laps run on without a
-    gap from the first view's start, so what follows a view's last lap (the
-    parallel scheme's update of the estimate) belongs to that view. A
-    view's two phase records go to the recorder when the next view opens
-    or the timer closes. On a CUDA device each lap records an event on
-    the current stream; nothing waits for the device until the recorder
-    is read."""
+    `lap(phase)` closes, on every device, the interval since that
+    device's last lap, in stream order, and gives it to `phase` of the
+    open view; the laps run on without a gap from the first view's start,
+    so what follows a view's last lap (the parallel scheme's update of the
+    estimate) belongs to that view. A view's records, one a phase and
+    device, go to the recorder when the next view opens or the timer
+    closes; the recorder counts the cards a phase was recorded on. On a
+    CUDA device each lap records an event on its current stream and
+    nothing waits for the device until the recorder is read; elsewhere
+    the host clock. A card's phases are its stream time: its kernels, its
+    copies, and on a mesh where it waits for the host thread that drives
+    the other cards."""
 
-    def __init__(self, device: torch.device, run_id: int):
-        device = torch.device(device)
-        self._stream = (torch.cuda.current_stream(device)
-                        if device.type == "cuda" else None)
+    def __init__(self, devices, run_id: int, phases=(CONV, UPDATE),
+                 spans=(RL_ITERATION, RL_VIEW)):
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = list(dict.fromkeys(torch.device(d) for d in devices))
+        self._streams = {d: torch.cuda.current_stream(d)
+                         for d in self.devices if d.type == "cuda"}
         self.run_id = run_id
+        self.phases = tuple(phases)
+        self._iteration, self._view = spans
         self._laps: Optional[dict] = None
-        self._last = None
+        self._last: dict = {}
 
-    def _mark(self):
-        if self._stream is None:
+    def _mark(self, d: torch.device):
+        stream = self._streams.get(d)
+        if stream is None:
             return time.perf_counter()
         e = torch.cuda.Event(enable_timing=True)
-        e.record(self._stream)
+        e.record(stream)
         return e
 
     def lap(self, phase: str) -> None:
-        now = self._mark()
-        self._laps[phase].append((self._last, now))
-        self._last = now
+        for d in self.devices:
+            now = self._mark(d)
+            self._laps[d][phase].append((self._last[d], now))
+            self._last[d] = now
 
     def iteration(self) -> span:
-        return span(RL_ITERATION)
+        return span(self._iteration)
 
     def view(self) -> span:
         self._flush()
-        self._laps = {CONV: [], UPDATE: []}
-        if self._last is None:          # the laps start with the first view
-            self._last = self._mark()
-        return span(RL_VIEW)
+        self._laps = {d: {p: [] for p in self.phases} for d in self.devices}
+        if not self._last:              # the laps start with the first view
+            self._last = {d: self._mark(d) for d in self.devices}
+        return span(self._view)
 
     def close(self) -> None:
         self._flush()
@@ -242,13 +276,18 @@ class PhaseTimer:
     def _flush(self) -> None:
         if self._laps is None:
             return
-        for phase, pairs in self._laps.items():
-            if self._stream is not None:
-                RECORDER.add_pending(phase, pairs, RL_VIEW, self.run_id)
-            else:
-                RECORDER.add(SpanRecord(phase, pairs[0][0], pairs[-1][1],
-                                        RL_VIEW, self.run_id),
-                             sum(b - a for a, b in pairs))
+        for d, phases in self._laps.items():
+            for phase, pairs in phases.items():
+                if not pairs:
+                    continue
+                if d in self._streams:
+                    RECORDER.add_pending(phase, pairs, self._view,
+                                         self.run_id, str(d))
+                else:
+                    RECORDER.add(SpanRecord(phase, pairs[0][0],
+                                            pairs[-1][1], self._view,
+                                            self.run_id),
+                                 sum(b - a for a, b in pairs), card=str(d))
         self._laps = None
 
 
