@@ -109,8 +109,10 @@ package) and exits nonzero on any failure:
    4 positions over the visible cards (all on cuda:0 on one card): (a)
    the RL main path z-sharded through `sharded_deconvolution_runner`,
    lowrank and FFT, against the in-memory runner, with both walls, the
-   launches (20 iterations x kernels x 4 shards) and zpass and sl_rows
-   held against their plain versions on the first shard conv's inputs;
+   launches (20 iterations x kernels x 4 shards; on both backends one
+   `rl_quotient` and one `rl_update` a view and shard) and zpass and
+   sl_rows held against their plain versions on the first shard conv's
+   inputs;
    (b) the view axis (`view=2, z=2`, parallel scheme, stacked matrices,
    float32 and bf16); (c) the pipeline's 208^3 box on `z=3` (ragged);
    (d) the detection configuration through `detect_beads_dataset(mesh=)`
@@ -132,7 +134,9 @@ package) and exits nonzero on any failure:
    (gloo through the host where the processes share a card; a second run
    with one card a worker, NCCL, where there are two), each worker's
    launches and walls, and the bytes and host seconds of the
-   cross-process hops; then (f) the CLI's `detect`, `register` and
+   cross-process hops (each worker launches `rl_quotient` and
+   `rl_update` once a view and position of its own in (a) and (c)); then
+   (f) the CLI's `detect`, `register` and
    `deconvolve --multihost` as two processes against the same verbs
    without it, process 1 printing and writing nothing.
 
@@ -3113,10 +3117,11 @@ def mesh_rl(prep, mesh) -> dict:
     lowrank (sequential, 20 iterations) and FFT, each against the
     in-memory runner on the card; walls of both (MESH_WALL_RUNS runs
     after a warm-up, with their median and spread; the sharded run
-    returns its shards on the card); launches of
-    the counted lowrank run and a torch.profiler breakdown of one more;
-    zpass and sl_rows held against their plain versions on the first
-    shard conv's inputs."""
+    returns its shards on the card); launches of the counted run (on
+    both backends one `rl_quotient` and one `rl_update` a view and
+    position), and of the lowrank run a torch.profiler breakdown of one
+    more; zpass and sl_rows held against their plain versions on the
+    first shard conv's inputs."""
     from spim_registration_tpu_torch.deconv import DeconvolutionRunner
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
     from spim_registration_tpu_torch.parallel import (
@@ -3142,11 +3147,15 @@ def mesh_rl(prep, mesh) -> dict:
                           for _ in range(MESH_WALL_RUNS - 1)]
         got = gather(shards, mesh, ("z",))[:SHAPE[0]]
         want = want.cpu().numpy()
+        n_upd = N_ITER * prep.images.shape[0] * mesh.size
         case = {"staging_s": stage_s, "sharded_walls_s": walls,
                 "sharded_wall": wall_spread(walls),
                 "in_memory_walls_s": mem_walls,
                 "in_memory_wall": wall_spread(mem_walls),
                 "launches": launches,
+                "expected_update_launches": n_upd,
+                "update_launches_ok": launches["rl_quotient"]
+                == launches["rl_update"] == n_upd,
                 "finite": bool(np.all(np.isfinite(got)))}
         if backend == "lowrank":
             n_mat = sum("mat" in e for e in mem.k1_ffts + mem.k2_ffts)
@@ -3154,6 +3163,7 @@ def mesh_rl(prep, mesh) -> dict:
             case["nrmse"] = nrmse(want, got)
             case["tol"] = MESH_RL_TOL
             case["ok"] = bool(case["nrmse"] <= MESH_RL_TOL and case["finite"]
+                              and case["update_launches_ok"]
                               and launches["zpass"] == launches["sl_rows"]
                               == case["expected_launches"])
             case["profile"] = device_profile(run)
@@ -3165,7 +3175,8 @@ def mesh_rl(prep, mesh) -> dict:
             case["max_abs_err"] = float(d.max())
             case["rtol"], case["atol"] = MESH_FFT_RTOL, MESH_FFT_ATOL
             case["ok"] = bool(np.all(d <= MESH_FFT_ATOL + MESH_FFT_RTOL
-                                     * np.abs(want)) and case["finite"])
+                                     * np.abs(want)) and case["finite"]
+                              and case["update_launches_ok"])
         info[backend] = case
         del mem, run, shards
         torch.cuda.empty_cache()
@@ -3653,9 +3664,9 @@ def mesh_cli() -> dict:
 def phase_mesh(psfs, factors, pipe) -> dict:
     """The in-process device mesh at full width (cases (a)-(h) of the
     functions above), MESH_POSITIONS positions over the visible cards.
-    Prints one JSON line per case; returns the launches of zpass and
-    sl_rows in (a)'s counted lowrank run and of segtopk in (d)'s meshed
-    detection, and the shard-shape errors."""
+    Prints one JSON line per case; returns the launches of zpass,
+    sl_rows, rl_quotient and rl_update in (a)'s counted lowrank run and of
+    segtopk in (d)'s meshed detection, and the shard-shape errors."""
     from spim_registration_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(("z",), (MESH_POSITIONS,), devices=mesh_devices())
@@ -3684,8 +3695,8 @@ def phase_mesh(psfs, factors, pipe) -> dict:
         raise AssertionError(f"phase mesh failed: {bad}")
     rl = results["rl"]["lowrank"]
     shard = rl["shard_kernels"]
-    return {"zpass": rl["launches"]["zpass"],
-            "sl_rows": rl["launches"]["sl_rows"],
+    return {**{k: rl["launches"][k]
+               for k in ("zpass", "sl_rows", "rl_quotient", "rl_update")},
             "segtopk": results["detect"]["launches"]["mesh"]["segtopk"],
             "errors": {"zpass": shard["zpass"]["max_abs_err"],
                        "sl_rows": shard["sl_rows"]["max_abs_err"],
@@ -3941,6 +3952,14 @@ def mh_check(d: str, ref: dict, workers: list) -> dict:
     out["a"]["launches_ok"] = all(
         w["a"]["launches"]["zpass"] == w["a"]["launches"]["sl_rows"]
         == per_pos * MH_LOCAL > 0 for w in workers)
+    # and the view update's kernels once a view and position of its own,
+    # on both sequential backends
+    n_upd = N_ITER * N_VIEWS * MH_LOCAL
+    for case in ("a", "c"):
+        out[case]["update_launches_ok"] = all(
+            w[case]["launches"]["rl_quotient"]
+            == w[case]["launches"]["rl_update"] == n_upd for w in workers)
+        out[case]["ok"] &= out[case]["update_launches_ok"]
     out["a"]["ok"] &= out["a"]["launches_ok"]
     seg = [w["d"]["launches"]["segtopk"] for w in workers]
     same = [bool(np.array_equal(load(f"d_{s}"), ref[f"d_{s}"]))
@@ -4123,7 +4142,8 @@ def phase_multihost(psfs, factors, pipe) -> dict:
     `initialize_multihost` picks (gloo through the host on one card; a
     second run with one card a worker, NCCL, where there are two or
     more), then the CLI (`mh_cli`). Prints one JSON line per run; returns
-    each worker's launches of zpass, sl_rows and segtopk in (a) and (d)."""
+    each worker's launches of zpass, sl_rows, rl_quotient and rl_update in
+    (a) and of segtopk in (d)."""
     import tempfile
 
     n_cards = torch.cuda.device_count()
@@ -4179,9 +4199,9 @@ def phase_multihost(psfs, factors, pipe) -> dict:
             ok &= all(checks[c]["ok"] for c in ("a", "b", "c", "d", "e"))
             if name == "default":
                 launches = {
-                    "zpass": [w["a"]["launches"]["zpass"] for w in workers],
-                    "sl_rows": [w["a"]["launches"]["sl_rows"]
-                                for w in workers],
+                    **{k: [w["a"]["launches"][k] for w in workers]
+                       for k in ("zpass", "sl_rows", "rl_quotient",
+                                 "rl_update")},
                     "segtopk": [w["d"]["launches"]["segtopk"]
                                 for w in workers]}
         t0 = time.perf_counter()
@@ -4323,10 +4343,11 @@ def main() -> int:
         launches_timelapse["config5"]
     for name, n in launches_formats.items():
         kernels[name]["launches_formats"] = n
-    for name in ("zpass", "sl_rows", "segtopk"):
+    for name in ("zpass", "sl_rows", "segtopk", "rl_quotient", "rl_update"):
         kernels[name]["launches_mesh"] = mesh[name]
-        kernels[name]["max_abs_err_mesh_shard"] = mesh["errors"][name]
         kernels[name]["launches_multihost"] = multihost[name]
+    for name in ("zpass", "sl_rows", "segtopk"):
+        kernels[name]["max_abs_err_mesh_shard"] = mesh["errors"][name]
     emit({"kernels": [kernels[k] for k in ("zpass", "sl_rows", "segtopk",
                                            "dog", "zfused", "rl_quotient",
                                            "rl_update")]})

@@ -16,6 +16,11 @@ centred at column `hz`: on a card it launches the hand-written kernels
 on the CPU the same call takes their plain versions. The route follows
 the device alone, as in the out-of-core engine (`lowrank_fused` selects
 between the kernels and the plain chain only in the in-memory engine).
+In the sequential scheme the z-sharded engines' view update runs through
+`ops/kernels/rl_update.py` (`rl_quotient`, `rl_update`: a kernel each on
+a card, their plain versions on the CPU), whose passes write the next
+convolution's operand in the dtype it reads, so a lowrank bf16 operand
+crosses the halo exchange in bf16.
 
 Inputs are host arrays (or tensors); outputs are host arrays, except
 `device_result`. Across processes (`parallel/multihost.py`) every
@@ -64,6 +69,11 @@ from spim_registration_tpu_torch.ops.gaussian import (
 )
 from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
     conv_lowrank_folded_fused,
+    operand_dtype,
+)
+from spim_registration_tpu_torch.ops.kernels.rl_update import (
+    rl_quotient,
+    rl_update,
 )
 from spim_registration_tpu_torch.ops.separable import mirror_indices
 from spim_registration_tpu_torch.parallel.halo import halo_exchange_z
@@ -634,6 +644,7 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
                             else prep.osem_factor))
     lam = float(np.float32(params.tikhonov_lambda))
     use_lam = params.tikhonov_lambda > 0
+    lam_ = lam if use_lam else None     # `rl_update`'s form
     # shard by shard; a ragged depth's rows past Z mirror the data, with
     # weights 0 there (no signal)
     imgs, ws, psi_start, avg = stage_slabs(
@@ -727,11 +738,6 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
         return each(lambda p, img, c: torch.clamp(
             img[v] / torch.clamp(c, min=1e-12), 0.0, 1e4), imgs, conv1)
 
-    def osem_update(psi, v, delta):
-        """Sequential: psi * (1 + osem * w_v * delta), regularized."""
-        return restore(each(lambda p, x, w, d: regularize(
-            x * (1.0 + osem * w[v] * d)), psi, ws, delta))
-
     def parallel_update(psi, partial):
         """Parallel: psi * (1 + the summed factor), regularized."""
         return restore(each(lambda p, x, f: regularize(x * (1.0 + f)),
@@ -740,11 +746,46 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
     def add(acc, t):
         return t if acc is None else each(lambda p, a, b: a + b, acc, t)
 
+    def run_sequential(psi, conv, delta, bf16):
+        """The sequential (OSEM) scheme of the z-only engines: at every
+        position the quotient and the estimate's update (in place; a run
+        starts from a copy of the staged start) are one `rl_quotient` and
+        one `rl_update`. `conv(xs, ks, v, step)` convolves with view v's
+        kernel of `ks`; `delta(v)`: its second conv takes q - 1;
+        `bf16(ks, v)`: that conv reads a bf16 operand. Each pass writes
+        the next convolution's operand in the dtype it reads, so the halo
+        exchange before it moves bf16 rows there; the first convolution
+        of a run casts inside itself. At a ragged depth the estimate's
+        mirror rows are re-pinned after its update, so there the update
+        writes no copy and the convolution casts."""
+        psi = each(lambda p, x: x.clone(), psi)
+        x = psi                 # the next conv's operand: psi or a copy
+        for i in range(n_iter):
+            with iteration():
+                for v in range(V):
+                    with view():
+                        d, b = delta(v), bf16(k2, v)
+                        q = restore(each(lambda p, img, c: rl_quotient(
+                            img[v], c, d, b), imgs, conv(x, k1, v, i + v)))
+                        last = i == n_iter - 1 and v == V - 1
+                        copy = (pad == 0 and not last
+                                and bf16(k1, (v + 1) % V))
+                        x = each(lambda p, s, c, w: rl_update(
+                            s, c, w[v], osem, lam_, minv, d, copy),
+                            psi, conv(q, k2, v, i + v), ws)
+                        if pad:
+                            psi = x = restore(psi)
+                        lap(MESH_UPDATE)
+        return psi
+
     def run_lowrank(psi):
         """z-sharded lowrank RL: unrolled per-view kernels with adaptive
         ranks, the bf16 phase schedule (iteration + view), conv2 in delta
         form K2 (x) (q - 1), exact-FFT entries where a kernel missed its
-        tolerance."""
+        tolerance. Sequential scheme: `run_sequential`, with a bf16
+        operand where a conv's entry holds bf16 matrices (an exact-FFT
+        entry reads float32). The parallel scheme runs the plain
+        chain."""
         mats = [e["mat"] for e in mesh.first(k1) + mesh.first(k2)
                 if "mat" in e]
         n_phases = mats[0][0].shape[0] if mats else 1
@@ -763,26 +804,24 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
                 return conv(each(lambda p, x: x - 1.0, q), k2, v, step)
             return each(lambda p, c: c - 1.0, conv(q, k2, v, step))
 
+        if scheme == "sequential":
+            return run_sequential(
+                psi, conv, lambda v: "mat" in mesh.first(k2)[v],
+                lambda ks, v: operand_dtype(mesh.first(ks)[v])
+                == torch.bfloat16)
         for i in range(n_iter):
             with iteration():
-                if scheme == "sequential":
-                    for v in range(V):
-                        with view():
-                            psi = osem_update(psi, v,
-                                              view_delta(psi, v, i + v))
-                            lap(MESH_UPDATE)
-                else:
-                    factor = each(lambda p, x: torch.ones(
-                        (), device=x.device), psi)
-                    for v in range(V):
-                        with view():
-                            factor = each(
-                                lambda p, f, w, d, v=v: f + w[v] * d,
-                                factor, ws, view_delta(psi, v, i + v))
-                            lap(MESH_UPDATE)
-                    psi = restore(each(lambda p, x, f: regularize(x * f),
-                                       psi, factor))
-                    lap(MESH_UPDATE)
+                factor = each(lambda p, x: torch.ones(
+                    (), device=x.device), psi)
+                for v in range(V):
+                    with view():
+                        factor = each(
+                            lambda p, f, w, d, v=v: f + w[v] * d,
+                            factor, ws, view_delta(psi, v, i + v))
+                        lap(MESH_UPDATE)
+                psi = restore(each(lambda p, x, f: regularize(x * f),
+                                   psi, factor))
+                lap(MESH_UPDATE)
         return psi
 
     def run_stacked(psi):
@@ -815,8 +854,10 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
         return psi
 
     def run_plain(psi):
-        """FFT or separable backend."""
-        def conv(xs, ks, u):
+        """FFT or separable backend. Sequential scheme: `run_sequential`
+        in float32, which these convolutions read. The parallel scheme
+        runs the plain chain."""
+        def conv(xs, ks, u, step=None):
             local = each(lambda p, k: k[v0[p] + u], ks)
             if backend == "separable":
                 return sep_conv(xs, local)
@@ -826,26 +867,22 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
             q = restore(quotient(conv(p_, k1, u), u))
             return conv(q, k2, u)
 
+        if scheme == "sequential":
+            return run_sequential(psi, conv, lambda v: False,
+                                  lambda ks, v: False)
         for _ in range(n_iter):
             with iteration():
-                if scheme == "parallel":
-                    partial = None
-                    for u in range(Vl):
-                        with view():
-                            partial = add(partial, each(
-                                lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
-                                conv2(psi, u)))
-                            lap(MESH_UPDATE)
-                    if view_axis is not None:
-                        partial = psum(partial, mesh, view_axis)
-                    psi = parallel_update(psi, partial)
-                    lap(MESH_UPDATE)
-                else:
-                    for v in range(V):
-                        with view():
-                            psi = osem_update(psi, v, each(
-                                lambda p, c: c - 1.0, conv2(psi, v)))
-                            lap(MESH_UPDATE)
+                partial = None
+                for u in range(Vl):
+                    with view():
+                        partial = add(partial, each(
+                            lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
+                            conv2(psi, u)))
+                        lap(MESH_UPDATE)
+                if view_axis is not None:
+                    partial = psum(partial, mesh, view_axis)
+                psi = parallel_update(psi, partial)
+                lap(MESH_UPDATE)
         return psi
 
     if stacked is not None:

@@ -4,10 +4,14 @@
 On the CPU: shard-by-shard staging (`stage_slabs`) against the whole-stack
 staging it replaced (written out below in numpy), at an even and a ragged
 depth and on a (view, z) mesh; the spans, per-card phases and halo
-counters of a traced run on a 4-position mesh. On the card (`cuda`
-marker): `conv_lowrank_folded_fused` at one card's slab shape of the
-six-view 1024^3 deployment, z-sharded over four cards, against the plain
-chain, and the halo exchange between two cards against one device's.
+counters of a traced run on a 4-position mesh; the sequential view
+update on `rl_quotient` / `rl_update` against the plain chain, bit for
+bit (lowrank, FFT and separable backends), and the bf16 operands it asks
+for. On the card (`cuda` marker): `conv_lowrank_folded_fused` at one
+card's slab shape of the six-view 1024^3 deployment, z-sharded over four
+cards, against the plain chain; the halo exchange between two cards
+against one device's; the sequential engine on the update kernels
+against the plain chain.
 
 Imports nothing of JAX, so the card's machine runs it with
 `--noconftest`."""
@@ -27,13 +31,17 @@ from spim_registration_tpu_torch.deconv import (
 )
 from spim_registration_tpu_torch.deconv.prep import DeconvolutionViews
 from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
+from spim_registration_tpu_torch.ops.kernels import rl_update as ru
 from spim_registration_tpu_torch.parallel import (
     halo_exchange_z,
     make_mesh,
     sharded_deconvolution_runner,
 )
 from spim_registration_tpu_torch.parallel import mesh as pmesh
+from spim_registration_tpu_torch.parallel import sharded
 from spim_registration_tpu_torch.utils import profiling as pf
+
+from bitwise_helpers import _rotated_gaussian, assert_bitwise
 
 CPU = torch.device("cpu")
 FIXTURES = Path(__file__).resolve().parents[1] / "bench_fixtures" / "psfs.npz"
@@ -128,8 +136,11 @@ def test_traced_run_spans_phases_and_halo_counters(backend):
     staging span (its two decompositions on the lowrank path), one run,
     an iteration span each, a view span and a halo, conv and update
     record each view on the one device, 2 exchanges a view update of
-    h * Y * X * 4 bytes a boundary and direction (3 boundaries, 2
-    directions); untraced, the staging span alone."""
+    h * Y * X * (element size) bytes a boundary and direction (3
+    boundaries, 2 directions): float32 rows on the FFT backend; on the
+    lowrank backend bf16 rows, written so by the pass before each
+    convolution, except the float32 start of the run's first one;
+    untraced, the staging span alone."""
     rng = np.random.default_rng(7)
     V, shape, n_iter = 2, (32, 12, 14), 3
     imgs, w = _inputs(rng, V, shape)
@@ -168,9 +179,146 @@ def test_traced_run_spans_phases_and_halo_counters(backend):
     exchanges = halo_exchange_z.exchanges - ex0
     assert exchanges == 2 * V * n_iter
     h = 3                                 # the 7-tap kernels' half-support
+    sizes = [4] * exchanges if backend == "fft" else [4] + [2] * (
+        exchanges - 1)
     assert halo_exchange_z.peer_bytes - by0 == (
-        exchanges * 3 * 2 * h * shape[1] * shape[2] * 4)
+        sum(sizes) * 3 * 2 * h * shape[1] * shape[2])
     pf.reset_spans()
+
+
+# sequential runs: (backend, lowrank matrix dtype, whether the last view's
+# PSF is turned so that its kernels take exact-FFT entries beside the
+# matrices)
+SEQUENTIAL_RUNS = {"bf16": ("lowrank", "bfloat16", False),
+                   "float32": ("lowrank", "float32", False),
+                   "mixed": ("lowrank", "bfloat16", True),
+                   "fft": ("fft", "bfloat16", False),
+                   "separable": ("separable", "bfloat16", False)}
+
+
+def _sequential_runner(run, depth, lam, devices, views=3, n_iter=3):
+    """A sequential runner of `views` views of (depth, 12, 14) on a
+    4-position z mesh over `devices`."""
+    backend, dtype, turned = SEQUENTIAL_RUNS[run]
+    rng = np.random.default_rng(depth)
+    imgs, w = _inputs(rng, views, (depth, 12, 14))
+    psfs = [gaussian_psf((7, 7, 7), (1.0, 1.3, 1.1)),
+            gaussian_psf((7, 7, 7), (1.4, 1.0, 1.2)),
+            gaussian_psf((7, 7, 7), (1.2, 1.1, 1.0))][:views]
+    kw = dict(psf_rank=6, psf_rank_tol=1e-2, psf_rank_hard=12)
+    if turned:
+        psfs[-1] = _rotated_gaussian((7, 7, 7), (2.0, 1.0, 1.0), 35.0)
+        kw = dict(psf_rank=4, psf_rank_tol=1e-3, psf_rank_hard=4)
+    params = DeconvolutionParameters(
+        num_iterations=n_iter, conv_backend=backend, lowrank_dtype=dtype,
+        tikhonov_lambda=lam, **kw)
+    mesh = make_mesh(("z",), (4,), devices=devices)
+    run_ = sharded_deconvolution_runner(
+        DeconvolutionViews(imgs, w, psfs, float(views)), params, mesh,
+        device_result=True)
+    # the turned view's two kernels on FFT, the others' on matrices
+    assert backend != "lowrank" or [
+        ["fft" in e for e in ks] for ks in run_.entries] == [
+        [False] * (views - 1) + [turned]] * 2
+    return run_
+
+
+def _chain_quotient(image, conv1, delta=False, bf16=False):
+    """The view update's quotient before its kernels, in float32 whatever
+    the conv reads (a bf16 conv cast it itself)."""
+    q = torch.clamp(image / torch.clamp(conv1, min=1e-12), 0.0, 1e4)
+    return q - 1.0 if delta else q
+
+
+def _chain_update(psi, conv2, weight, osem, lam, min_value, delta=False,
+                  bf16_copy=False):
+    """The estimate's update before its kernels, out of place, returning
+    the float32 estimate as the next conv's operand."""
+    x = psi * (1.0 + osem * weight * (conv2 if delta else conv2 - 1.0))
+    if lam is not None:
+        x = x / (1.0 + lam * x)
+    psi.copy_(torch.clamp(x, min=min_value))
+    return psi
+
+
+def _shards(run_):
+    return torch.cat([s.cpu() for s in run_()])
+
+
+@pytest.mark.parametrize("run", sorted(SEQUENTIAL_RUNS))
+@pytest.mark.parametrize("lam", [0.0, 6e-4])
+@pytest.mark.parametrize("depth", [32, 37])
+def test_sequential_lowrank_view_update_is_the_plain_chain(run, lam, depth,
+                                                           monkeypatch):
+    """The sharded sequential engine on the update's wrappers, at an even
+    and a ragged depth, with Tikhonov on and off, on bf16 and float32
+    lowrank matrices, beside exact-FFT entries, and on the FFT and
+    separable backends, equals bit for bit the same engine on the
+    wrappers' plain versions and on the float32 chain it ran before
+    (every operand cast inside its conv); repeated runs return the same
+    shards and leave the staged start as it was."""
+    run_ = _sequential_runner(run, depth, lam, [CPU] * 4)
+    start = [s.clone() for s in run_.start]
+    got = _shards(run_)
+    assert_bitwise(_shards(run_), got)
+    for s, s0 in zip(run_.start, start):
+        assert_bitwise(s, s0)
+    monkeypatch.setattr(sharded, "rl_quotient", ru.rl_quotient_reference)
+    monkeypatch.setattr(sharded, "rl_update", ru.rl_update_reference)
+    assert_bitwise(_shards(run_), got)
+    monkeypatch.setattr(sharded, "rl_quotient", _chain_quotient)
+    monkeypatch.setattr(sharded, "rl_update", _chain_update)
+    assert_bitwise(_shards(run_), got)
+    assert ru.rl_quotient.launches == ru.rl_update.launches == 0
+
+
+@pytest.mark.parametrize("run", sorted(SEQUENTIAL_RUNS))
+@pytest.mark.parametrize("depth", [32, 37])
+def test_mesh_engine_asks_for_bf16_operands_where_the_conv_reads_bf16(
+        run, depth, monkeypatch):
+    """Each view update calls each wrapper once a position. The quotient
+    is bf16 where its conv's entry holds bf16 matrices; the estimate's
+    copy is bf16 where the next view's (view 0's after the last) is, at an
+    even depth only, and never after the run's last view; the FFT and
+    separable backends ask for float32 throughout. The halo exchanges
+    stay 2 a view, 4 at a ragged depth (the mirror rows' restores), and a
+    bf16 operand changes no bit of the estimate."""
+    views, n_iter = 3, 3
+    run_ = _sequential_runner(run, depth, 6e-4, [CPU] * 4)
+    want = _shards(run_)
+    asked = []
+
+    def spy(name, fn, at):
+        """Records the bf16 flag, positional argument `at` (default
+        False)."""
+        def call(*a):
+            asked.append((name, len(a) > at and a[at]))
+            return fn(*a)
+        monkeypatch.setattr(sharded, name, call)
+
+    spy("rl_quotient", ru.rl_quotient, 3)
+    spy("rl_update", ru.rl_update, 7)
+    n0 = (ru.rl_quotient.launches, ru.rl_update.launches,
+          halo_exchange_z.exchanges)
+    assert_bitwise(_shards(run_), want)
+    k1, k2 = run_.entries or ([{}] * views,) * 2
+
+    def bf16(e):
+        return "mat" in e and e["mat"][0].dtype == torch.bfloat16
+
+    padded = run_.padded_depth != depth
+    expect = []
+    for i in range(n_iter):
+        for v in range(views):
+            last = i == n_iter - 1 and v == views - 1
+            expect += [("rl_quotient", bf16(k2[v]))] * 4
+            expect += [("rl_update", not (padded or last)
+                        and bf16(k1[(v + 1) % views]))] * 4
+    assert asked == expect
+    assert any(b for _, b in asked) is (run in ("bf16", "mixed"))
+    assert (ru.rl_quotient.launches, ru.rl_update.launches,
+            halo_exchange_z.exchanges - n0[2]) == (
+        n0[0], n0[1], n_iter * views * (4 if padded else 2))
 
 
 def test_peer_bytes_count_what_ppermute_moved():
@@ -274,3 +422,33 @@ def test_halo_exchange_between_two_cards_equals_one_device():
         assert all(torch.equal(a, b) for a, b in zip(out["two"], out["one"]))
         # each hop moves its rows once in each direction: h in all
         assert moved == 2 * h * 40 * 56 * 4, (h, moved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [32, 37])
+def test_sharded_lowrank_update_kernels_match_the_plain_chain_on_cuda(
+        depth, monkeypatch):
+    """The sharded sequential RL on a 4-position mesh of cuda:0, at an
+    even and a ragged depth, on bf16 lowrank matrices, beside exact-FFT
+    entries, and on the FFT and separable backends, equals bit for bit the
+    same engine on the wrappers' plain versions and on the float32 chain
+    it ran before; each kernel launches once a view and position."""
+    _cuda_or_skip()
+    dev = torch.device("cuda", 0)
+    views, n_iter = 3, 3
+    for run in ("bf16", "mixed", "fft", "separable"):
+        run_ = _sequential_runner(run, depth, 6e-4, [dev] * 4, views,
+                                  n_iter)
+        n = ru.rl_quotient.launches, ru.rl_update.launches
+        got = _shards(run_)
+        torch.cuda.synchronize(dev)
+        assert (ru.rl_quotient.launches - n[0],
+                ru.rl_update.launches - n[1]) == (4 * views * n_iter,) * 2
+        with monkeypatch.context() as m:
+            m.setattr(sharded, "rl_quotient", ru.rl_quotient_reference)
+            m.setattr(sharded, "rl_update", ru.rl_update_reference)
+            assert_bitwise(_shards(run_), got)
+            m.setattr(sharded, "rl_quotient", _chain_quotient)
+            m.setattr(sharded, "rl_update", _chain_update)
+            assert_bitwise(_shards(run_), got)
+        assert_bitwise(_shards(run_), got)

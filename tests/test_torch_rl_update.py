@@ -31,23 +31,11 @@ from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 from spim_registration_tpu_torch.ops.kernels import rl_update as ru
 from spim_registration_tpu_torch.ops.separable import conv_lowrank_folded
 
+from bitwise_helpers import _rotated_gaussian, assert_bitwise
+
 torch.set_num_threads(2)
 
 OSEM, LAM, MIN_VALUE = 2.7, 0.0006, 3.1e-5
-
-
-def _bits(t):
-    """A tensor's bit patterns, so that NaNs and signed zeros compare."""
-    t = t.contiguous()
-    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
-
-
-def assert_bitwise(got, want):
-    assert got.dtype == want.dtype and got.shape == want.shape
-    same = _bits(got) == _bits(want)
-    assert bool(same.all()), (
-        f"{int((~same).sum())} of {same.numel()} differ, first at "
-        f"{tuple(int(i) for i in torch.nonzero(~same)[0])}")
 
 
 def _chain_quotient(image, conv1, delta, bf16):
@@ -152,18 +140,6 @@ def test_update_plain_version_is_the_chain(delta, bf16_copy, lam, layout):
 @pytest.fixture(autouse=True)
 def no_factor_cache(monkeypatch):
     monkeypatch.setenv("SPIM_FACTOR_CACHE", "0")
-
-
-def _rotated_gaussian(shape, sigmas, angle_deg):
-    """A Gaussian turned about y: a PSF that no low rank reproduces."""
-    t = np.deg2rad(angle_deg)
-    R = np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0],
-                  [-np.sin(t), 0, np.cos(t)]])
-    Ci = np.linalg.inv(R @ np.diag(np.square(sigmas)) @ R.T)
-    X = np.stack(np.meshgrid(*[np.arange(s) - s // 2 for s in shape],
-                             indexing="ij"), -1).astype(float)
-    k = np.exp(-0.5 * np.einsum("...i,ij,...j->...", X, Ci, X))
-    return (k / k.sum()).astype(np.float32)
 
 
 def _prep(shape, device="cpu", views=2, rotated=False, seed=4):
