@@ -11,11 +11,13 @@ writes it back, so the blocked result equals the in-memory engine
 
 Per iteration, for each view v (OSEM-sequential): for each block, read
 psi(block + r1 + r2), img_v(block + r2) and w_v(block), run the update on
-the device (two convolutions and the multiplicative update), write
-psi(block). Each view-update ping-pongs between the psi store and a
-scratch store: every block of a view's update must read the pre-update
-psi. The psi store doubles as the checkpoint: a run resumes from the last
-completed iteration (`init_psi=False`).
+the device (two convolutions, the quotient `rl_quotient` and the
+multiplicative update `rl_update` of `ops/kernels/rl_update.py`: a kernel
+each on a card, their plain versions on the CPU), write psi(block). Each
+view-update ping-pongs between the psi store and a scratch store: every
+block of a view's update must read the pre-update psi. The psi store
+doubles as the checkpoint: a run resumes from the last completed
+iteration (`init_psi=False`).
 
 Convolutions:
 - "fft": overlap-save in z (valid interior rows), mirror in y/x, on
@@ -30,8 +32,9 @@ Convolutions:
   as the reference's follows the platform (`lowrank_fused` is the
   in-memory engine's switch). Kernels that miss `psf_rank_tol` run the
   exact FFT path (per-kernel mix), bf16 matrices dither over the phase
-  schedule step = iteration + view, and conv2 runs in delta form, as in
-  the in-memory engine.
+  schedule step = iteration + view, and conv2 runs in delta form, its
+  operand written in bf16 by the quotient's pass where it reads bf16
+  matrices, as in the in-memory engine.
 
 With a `mesh` (`parallel.Mesh`), block k of each view-update runs on
 mesh position k % mesh.size (the reference's `_view_update_meshed` runs
@@ -69,11 +72,16 @@ from spim_registration_tpu_torch.native_blocks import (
 )
 from spim_registration_tpu_torch.ops.fftconv import (
     fft_shape_for,
+    overlap_save_convolve,
     prepare_kernel_fft,
 )
-from spim_registration_tpu_torch.ops.gaussian import mirror_pad
 from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
     conv_lowrank_folded_fused,
+    operand_dtype,
+)
+from spim_registration_tpu_torch.ops.kernels.rl_update import (
+    rl_quotient,
+    rl_update,
 )
 from spim_registration_tpu_torch.ops.separable import (
     decompose_for_rl,
@@ -192,18 +200,6 @@ def _entry_to(entry: dict, dev: torch.device) -> dict:
     return {k: (tuple(t.to(dev) for t in val) if k == "mat"
                 else val.to(dev) if k == "fft" else val)
             for k, val in entry.items()}
-
-
-def _conv_os(x: torch.Tensor, kfft: torch.Tensor, rz: int, ry: int, rx: int,
-             fshape) -> torch.Tensor:
-    """Overlap-save FFT conv: valid interior rows in z, mirror in y/x."""
-    Y, X = x.shape[1], x.shape[2]
-    xp = mirror_pad(mirror_pad(x, ry, 1), rx, 2)
-    xp = torch.nn.functional.pad(xp, (0, fshape[2] - xp.shape[2],
-                                      0, fshape[1] - xp.shape[1],
-                                      0, fshape[0] - xp.shape[0]))
-    out = torch.fft.irfftn(torch.fft.rfftn(xp) * kfft, s=tuple(fshape))
-    return out[rz:x.shape[0] - rz, ry:ry + Y, rx:rx + X]
 
 
 @dataclasses.dataclass
@@ -354,7 +350,9 @@ class BlockedDeconvolutionRunner:
 
         self.osem = (params.osem_factor if params.osem_factor is not None
                      else inputs.osem_factor)
-        self.lam = params.tikhonov_lambda
+        # `rl_update`'s form: float32-rounded, None where off
+        self.lam = (float(np.float32(params.tikhonov_lambda))
+                    if params.tikhonov_lambda > 0 else None)
         self.avg = None  # set by initialize_psi / resume
         self.scratch_store = (scratch_store if scratch_store is not None
                               else self._make_scratch(psi_store))
@@ -413,7 +411,9 @@ class BlockedDeconvolutionRunner:
     # ------------------------------------------------------------------
     def _conv(self, x, entry, trim, step, rz_fft, ry, rx, fshape):
         if "fft" in entry:
-            return _conv_os(x, entry["fft"], rz_fft, ry, rx, fshape)
+            return overlap_save_convolve(x, entry["fft"], rz_fft,
+                                         x.shape[0] - 2 * rz_fft, ry, rx,
+                                         fshape)
         mats = entry["mat"]
         Tz, My, Mx = (M[step % M.shape[0]] for M in mats)
         xp = x[trim:x.shape[0] - trim] if trim else x
@@ -425,24 +425,23 @@ class BlockedDeconvolutionRunner:
         """One view's RL update for one z-slab block: psi_ext (bz + 2 hz,
         Y, X) with the global z edges mirror-read; y/x mirror boundaries
         are applied locally, as the in-memory engine mirrors full axes.
-        The tensors lie on `dev`, one of the devices the blocks run on."""
+        The tensors lie on `dev`, one of the devices the blocks run on.
+        The update is written in place into psi_ext's interior rows, which
+        are returned."""
         r1, r2 = self.r1[v], self.r2[v]
         e1, e2 = (es[v] for es in self._entries[dev])
         conv1 = self._conv(psi_ext, e1, self.t1[v], step, self.hz - self.r2z,
                            r1[1], r1[2], self.fs1[v])
-        q = torch.clamp(img_ext / torch.clamp(conv1, min=1e-12), 0.0, 1e4)
-        q = _mirror_q_edges(q, z_lo, self.shape[0])
-        if "mat" in e2:  # delta form, as the in-memory lowrank engine
-            conv2m1 = self._conv(q - 1.0, e2, self.t2[v], step, 0, 0, 0, None)
-        else:
-            conv2m1 = self._conv(q, e2, 0, step, self.r2z, r2[1], r2[2],
-                                 self.fs2[v]) - 1.0
-        psi = psi_ext[self.hz:self.hz + self.bz]
-        psi = psi * (1.0 + float(np.float32(self.osem)) * w * conv2m1)
-        if self.lam > 0:
-            psi = psi / (1.0 + float(np.float32(self.lam)) * psi)
-        return torch.clamp(psi, min=float(np.float32(
-            self.params.min_value * self.avg)))
+        delta = "mat" in e2  # as the in-memory lowrank engine
+        q = _mirror_q_edges(rl_quotient(
+            img_ext, conv1, delta, operand_dtype(e2) == torch.bfloat16),
+            z_lo, self.shape[0])
+        conv2 = self._conv(q, e2, self.t2[v], step, self.r2z, r2[1], r2[2],
+                           self.fs2[v])
+        return rl_update(psi_ext[self.hz:self.hz + self.bz], conv2, w,
+                         float(np.float32(self.osem)), self.lam,
+                         float(np.float32(self.params.min_value * self.avg)),
+                         delta)
 
     def run(self, num_iterations: Optional[int] = None,
             init_psi: bool = True, progress_fn=None):

@@ -35,8 +35,10 @@ Convolution backends:
   a plain function that no engine calls.
 
 The iteration and view loops are Python loops (the reference's
-`fori_loop`/`scan`). The estimate psi is updated in place: each `run`
-works on its own copy of the starting estimate.
+`fori_loop`/`scan`), one for each scheme. In both, the elementwise work
+around the convolutions is `ops/kernels/rl_update.py`'s. The estimate psi
+is updated in place: each `run` works on its own copy of the starting
+estimate.
 """
 
 from __future__ import annotations
@@ -60,7 +62,6 @@ from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
 from spim_registration_tpu_torch.ops.kernels.rl_update import (
     regularize_,
     rl_quotient,
-    rl_quotient_reference,
     rl_update,
 )
 from spim_registration_tpu_torch.ops.separable import (
@@ -270,14 +271,13 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
     backend, (az, ay, ax) stacked factor banks for the separable backend,
     per-view entry dicts for the lowrank backend.
 
-    In the sequential scheme the elementwise work around the convolutions
-    runs through `ops/kernels/rl_update.py`: the quotient and the
-    estimate's update, each one kernel on CUDA tensors (their plain chain
-    on the CPU). Where a convolution runs on the lowrank kernels with bf16
-    matrices, its operand (the quotient, the estimate after the previous
-    view) is written in bf16 by the pass that computes it; the first view
-    of a run casts inside its convolution. The parallel scheme runs the
-    plain chain.
+    The elementwise work is `ops/kernels/rl_update.py`'s (a kernel on CUDA
+    tensors, the plain chain on the CPU): the quotient `rl_quotient`, the
+    sequential update `rl_update`, the parallel one `regularize_` of the
+    estimate times the summed factor. Where a convolution runs on the
+    lowrank kernels with bf16 matrices, the pass that computes its operand
+    (the quotient, the sequential estimate) writes it in bf16; the first
+    view of a run casts inside its convolution.
 
     `phases`: None, or a `utils.profiling.PhaseTimer` that opens the
     iteration and view spans and takes a lap after each phase of a view
@@ -292,13 +292,10 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
         return fft_convolve(x, None, kernel_fft=kfft, fft_shape=fft_shape,
                             boundary="mirror")
 
-    sequential = scheme == "sequential"
-    quotient = rl_quotient if sequential else rl_quotient_reference
-
     def bf16_operand(entry):
         # the pass that computes a bf16 operand of the lowrank kernels
-        # writes it so (sequential scheme)
-        return (sequential and lowrank and lowrank_fused
+        # writes it so
+        return (lowrank and lowrank_fused
                 and operand_dtype(entry) == torch.bfloat16)
 
     if lowrank:
@@ -332,7 +329,7 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
         # mass-1 kernel, but it cancels the bf16 matrices' row-sum
         # rounding and rounds the small field q - 1
         delta = lowrank and "mat" in k2[v]
-        q = quotient(images[v], conv1, delta, bf16_operand(k2[v]))
+        q = rl_quotient(images[v], conv1, delta, bf16_operand(k2[v]))
         if phases is not None:
             phases.lap(UPDATE)
         conv2 = conv(q, k2[v], step)
@@ -340,10 +337,11 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
             phases.lap(CONV)
         return conv2, delta
 
+    sequential = scheme == "sequential"
     # the parallel scheme's sum starts at 1 on the lowrank path (the
     # others add 1 to the sum of the views' terms)
-    acc0 = (torch.ones((), dtype=psi.dtype, device=psi.device)
-            if lowrank and not sequential else None)
+    one = (torch.ones((), dtype=psi.dtype, device=psi.device)
+           if lowrank and not sequential else None)
     # the operand of the next conv of psi: psi, or its bf16 copy
     x = psi
     # lowrank phase schedule (i + v): the phase advances across
@@ -361,7 +359,7 @@ def _rl_iterate(psi, images, weights, k1, k2, osem, lam, min_value,
                         if phases is not None:
                             phases.lap(UPDATE)
             else:
-                acc = acc0
+                acc = one
                 for v in range(V):
                     with _OFF if phases is None else phases.view():
                         conv2, delta = view_conv2(psi, v, i + v)

@@ -11,8 +11,10 @@ cropped result does not depend on the FFT size as long as the mirror pad
 on each side is at least the kernel radius, so the port and the reference
 agree at float tolerance with different padded shapes.
 
-`direct_convolve` is the reference's direct form (one `conv3d`); as in
-the reference, no engine calls it.
+`overlap_save_convolve` is the slab form with which the out-of-core and
+sharded RL engines convolve halo-extended z-slabs. `direct_convolve` is
+the reference's direct form (one `conv3d`); as in the reference, no
+engine calls it.
 """
 
 from __future__ import annotations
@@ -91,6 +93,24 @@ def fft_convolve(img: torch.Tensor, kernel: torch.Tensor | None,
     out = torch.fft.irfftn(f * kernel_fft, s=x.shape)
     return out[lo[0]:lo[0] + img.shape[0], lo[1]:lo[1] + img.shape[1],
                lo[2]:lo[2] + img.shape[2]].to(img.dtype)
+
+
+def overlap_save_convolve(x: torch.Tensor, kernel_fft: torch.Tensor, z0: int,
+                          n: int, ry: int, rx: int, fft_shape) -> torch.Tensor:
+    """Overlap-save convolution of a z-slab `x` read with halo rows: mirror
+    padded by (ry, rx) in y/x, zero padded to `fft_shape`, and rows
+    [z0, z0 + n) of the circular result, which are the true convolution's
+    as long as the kernel's z half-support is at most z0 and at most the
+    rows of `x` past z0 + n. `kernel_fft` is `prepare_kernel_fft(kernel,
+    fft_shape)`. Returns a crop view (unit innermost stride)."""
+    Y, X = x.shape[1], x.shape[2]
+    xp = mirror_pad(mirror_pad(x, ry, 1), rx, 2)
+    xp = torch.nn.functional.pad(xp, (0, fft_shape[2] - xp.shape[2],
+                                      0, fft_shape[1] - xp.shape[1],
+                                      0, fft_shape[0] - xp.shape[0]))
+    out = torch.fft.irfftn(torch.fft.rfftn(xp) * kernel_fft,
+                           s=tuple(fft_shape))
+    return out[z0:z0 + n, ry:ry + Y, rx:rx + X]
 
 
 def direct_convolve(img: torch.Tensor, kernel: torch.Tensor,

@@ -1,9 +1,8 @@
-"""The elementwise passes of the RL view update on hand-written CUDA kernels.
-
-A sequential (OSEM) view update of `deconv/lucy_richardson.py`
-`_rl_iterate` is two convolutions with elementwise work around them; here
-that work runs as two kernels (csrc/rl_update.cu), each one pass over
-memory:
+"""The RL update law: the elementwise work around the two convolutions of
+an RL view update, for every RL engine (`deconv/lucy_richardson.py`,
+`deconv/blocked.py`, `parallel/sharded.py`) and both schemes. Two passes
+run as kernels (csrc/rl_update.cu), each one pass over memory; the
+parallel scheme's update is `regularize_` of psi times its factor:
 
 - `rl_quotient`: q = clamp(image / clamp_min(conv1, 1e-12), 0, 1e4), less
   1 in the delta form, written once in the dtype the second convolution
@@ -14,7 +13,7 @@ memory:
   of the new psi that the next convolution reads.
 
 Beside each wrapper sits its plain PyTorch version (`rl_quotient_reference`,
-`rl_update_reference`): the chain the engine ran before, which is the
+`rl_update_reference`): the chain the engines ran before, which is the
 kernels' numerics contract (bit-identical results). A wrapper takes the
 plain version only for tensors on the CPU; for CUDA tensors it launches
 its kernel or raises — there is no fallback. Each wrapper counts its

@@ -16,9 +16,14 @@ centred at column `hz`: on a card it launches the hand-written kernels
 on the CPU the same call takes their plain versions. The route follows
 the device alone, as in the out-of-core engine (`lowrank_fused` selects
 between the kernels and the plain chain only in the in-memory engine).
-In the sequential scheme the z-sharded engines' view update runs through
-`ops/kernels/rl_update.py` (`rl_quotient`, `rl_update`: a kernel each on
-a card, their plain versions on the CPU), whose passes write the next
+The RL engine has one loop for each scheme, `run_sequential` and
+`run_parallel`; the backends (FFT, separable, z-sharded lowrank, lowrank
+stacked over a view axis) give them only how a view convolves and the
+few values in which their view updates differ. In both schemes the
+elementwise work is `ops/kernels/rl_update.py`'s: the quotient is
+`rl_quotient`, the sequential update `rl_update` (a kernel each on a
+card, their plain versions on the CPU), the parallel update
+`regularize_`. The quotient and the sequential update write the next
 convolution's operand in the dtype it reads, so a lowrank bf16 operand
 crosses the halo exchange in bf16.
 
@@ -60,6 +65,7 @@ from spim_registration_tpu_torch.deconv.lucy_richardson import (
 )
 from spim_registration_tpu_torch.ops.fftconv import (
     fft_shape_for,
+    overlap_save_convolve,
     prepare_kernel_fft,
 )
 from spim_registration_tpu_torch.ops.gaussian import (
@@ -72,6 +78,7 @@ from spim_registration_tpu_torch.ops.kernels.lowrank_conv import (
     operand_dtype,
 )
 from spim_registration_tpu_torch.ops.kernels.rl_update import (
+    regularize_,
     rl_quotient,
     rl_update,
 )
@@ -165,20 +172,6 @@ def sharded_dog(vol, sigma1, sigma2, mesh: Mesh,
 
 # ---------------------------------------------------------------- fft conv
 
-def _local_fft_conv(xp: torch.Tensor, kfft: torch.Tensor, zl: int, h: int,
-                    ry: int, rx: int, fshape) -> torch.Tensor:
-    """Overlap-save convolution of a halo-extended shard, y/x mirror-padded
-    here: the zl interior rows. Circular wrap stays within the halo as
-    long as the kernel's z half-support is <= h."""
-    Y, X = xp.shape[1], xp.shape[2]
-    xp = mirror_pad(mirror_pad(xp, ry, 1), rx, 2)
-    xp = torch.nn.functional.pad(xp, (0, fshape[2] - xp.shape[2],
-                                      0, fshape[1] - xp.shape[1],
-                                      0, fshape[0] - xp.shape[0]))
-    out = torch.fft.irfftn(torch.fft.rfftn(xp) * kfft, s=tuple(fshape))
-    return out[h:h + zl, ry:ry + Y, rx:rx + X]
-
-
 def sharded_fft_convolve(vol, kernel, mesh: Mesh,
                          axis_name: str = "z") -> np.ndarray:
     """FFT-convolve a z-sharded volume with a small (replicated) kernel:
@@ -206,8 +199,8 @@ def sharded_fft_convolve(vol, kernel, mesh: Mesh,
     kf = _per_device(mesh, lambda d: prepare_kernel_fft(
         torch.as_tensor(kernel, device=d), fshape))
     xs = halo_exchange_z(shard(vol, mesh, (axis_name,)), h, mesh, axis_name)
-    out = shard_map(lambda p, xp, k: _local_fft_conv(xp, k, zl, h, ry, rx,
-                                                     fshape), mesh, xs, kf)
+    out = shard_map(lambda p, xp, k: overlap_save_convolve(
+        xp, k, h, zl, ry, rx, fshape), mesh, xs, kf)
     return gather(out, mesh, (axis_name,))[:Z]
 
 
@@ -615,7 +608,7 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
                  rads)
                 for trip, rads in (s1, s2))
     if stacked is not None:
-        k1 = k2 = None
+        k1, k2 = stacked
     elif backend == "separable":
         k1, k2 = (shard_map(
             lambda p, bk: [tuple(b[v] for b in bk) for v in range(V)],
@@ -642,9 +635,8 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
     osem = float(np.float32(params.osem_factor
                             if params.osem_factor is not None
                             else prep.osem_factor))
-    lam = float(np.float32(params.tikhonov_lambda))
-    use_lam = params.tikhonov_lambda > 0
-    lam_ = lam if use_lam else None     # `rl_update`'s form
+    lam = (float(np.float32(params.tikhonov_lambda))
+           if params.tikhonov_lambda > 0 else None)
     # shard by shard; a ragged depth's rows past Z mirror the data, with
     # weights 0 there (no signal)
     imgs, ws, psi_start, avg = stage_slabs(
@@ -691,16 +683,11 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
             return xs
         return _mirror_restore_z(xs, Z, hr, mesh, axis_name)
 
-    def regularize(x):
-        if use_lam:
-            x = x / (1.0 + lam * x)
-        return torch.clamp(x, min=minv)
-
     def fft_conv(xs, kf):
         """kf: per position, the spectrum to apply there."""
         xps = exchange(xs, h)
-        return convolved(each(lambda p, xp, k: _local_fft_conv(
-            xp, k, zl, h, ry, rx, fshape), xps, kf))
+        return convolved(each(lambda p, xp, k: overlap_save_convolve(
+            xp, k, h, zl, ry, rx, fshape), xps, kf))
 
     def sep_conv(xs, banks_):
         """Sum-of-separable conv: the z pass over exchanged halo rows, the
@@ -733,31 +720,91 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
             xp, *m, rad_z=hz, rad_y=rads[1], rad_x=rads[2], z_off=hz),
             xps, mats))
 
-    def quotient(conv1, v):
-        """clip(img_v / conv1) at every position (v: local view)."""
-        return each(lambda p, img, c: torch.clamp(
-            img[v] / torch.clamp(c, min=1e-12), 0.0, 1e4), imgs, conv1)
+    # What the backends differ in, and all they give the two loops below:
+    # `conv(xs, ks, u, step)` convolves with local view u's kernel of
+    # `ks` (k1 or k2) at dither step `step`; `delta(u)`: view u's second
+    # conv takes q - 1; `bf16(ks, u)`: that conv of `ks` reads a bf16
+    # operand; `step(i, u)`: the dither step of view u in iteration i;
+    # `running`: the parallel factor sums from one, else its 1 is added
+    # after the sum (and its `psum` over a view axis).
+    if stacked is not None:
+        # view-axis lowrank RL on the (view, z) mesh: each view shard
+        # convolves its views with its stacked matrices; the bf16 phase
+        # advances per iteration, the same for every view on every shard
+        n_phases = mesh.first(k1[0][0]).shape[1]
 
-    def parallel_update(psi, partial):
-        """Parallel: psi * (1 + the summed factor), regularized."""
-        return restore(each(lambda p, x, f: regularize(x * (1.0 + f)),
-                            psi, partial))
+        def conv(xs, ks, u, step):
+            K, rads = ks
+            return mat_conv(xs, each(lambda p, *trip: tuple(
+                M[u, step % n_phases] for M in trip), *K), rads)
 
-    def add(acc, t):
-        return t if acc is None else each(lambda p, a, b: a + b, acc, t)
+        def delta(u):
+            return True
 
-    def run_sequential(psi, conv, delta, bf16):
+        def bf16(ks, u):
+            return mesh.first(ks[0][0]).dtype == torch.bfloat16
+
+        def step(i, u):
+            return i
+
+        running = False
+    elif backend == "lowrank":
+        # z-sharded lowrank RL: unrolled per-view kernels with adaptive
+        # ranks, the bf16 phase schedule (iteration + view), conv2 in
+        # delta form K2 (x) (q - 1), exact-FFT entries (float32 operands)
+        # where a kernel missed its tolerance
+        mats = [e["mat"] for e in mesh.first(k1) + mesh.first(k2)
+                if "mat" in e]
+        n_phases = mats[0][0].shape[0] if mats else 1
+
+        def conv(xs, ks, v, step):
+            e = mesh.first(ks)[v]
+            if "fft" in e:
+                return fft_conv(xs, each(lambda p, k: k[v]["fft"], ks))
+            ph = step % n_phases
+            return mat_conv(xs, each(lambda p, k: tuple(
+                M[ph] for M in k[v]["mat"]), ks), e["rad"])
+
+        def delta(v):
+            return "mat" in mesh.first(k2)[v]
+
+        def bf16(ks, v):
+            return operand_dtype(mesh.first(ks)[v]) == torch.bfloat16
+
+        def step(i, v):
+            return i + v
+
+        running = True
+    else:
+        # FFT or separable backend, in float32, which these convolutions
+        # read; view u of position p is global view v0[p] + u
+        def conv(xs, ks, u, step):
+            local = each(lambda p, k: k[v0[p] + u], ks)
+            if backend == "separable":
+                return sep_conv(xs, local)
+            return fft_conv(xs, local)
+
+        def delta(u):
+            return False
+
+        def bf16(ks, u):
+            return False
+
+        def step(i, u):
+            return None
+
+        running = False
+
+    def run_sequential(psi):
         """The sequential (OSEM) scheme of the z-only engines: at every
         position the quotient and the estimate's update (in place; a run
         starts from a copy of the staged start) are one `rl_quotient` and
-        one `rl_update`. `conv(xs, ks, v, step)` convolves with view v's
-        kernel of `ks`; `delta(v)`: its second conv takes q - 1;
-        `bf16(ks, v)`: that conv reads a bf16 operand. Each pass writes
-        the next convolution's operand in the dtype it reads, so the halo
-        exchange before it moves bf16 rows there; the first convolution
-        of a run casts inside itself. At a ragged depth the estimate's
-        mirror rows are re-pinned after its update, so there the update
-        writes no copy and the convolution casts."""
+        one `rl_update`. Each pass writes the next convolution's operand
+        in the dtype it reads, so the halo exchange before it moves bf16
+        rows there; the first convolution of a run casts inside itself.
+        At a ragged depth the estimate's mirror rows are re-pinned after
+        its update, so there the update writes no copy and the
+        convolution casts."""
         psi = each(lambda p, x: x.clone(), psi)
         x = psi                 # the next conv's operand: psi or a copy
         for i in range(n_iter):
@@ -771,126 +818,45 @@ def _stage_runner(prep, params, mesh: Mesh, axis_name: str,
                         copy = (pad == 0 and not last
                                 and bf16(k1, (v + 1) % V))
                         x = each(lambda p, s, c, w: rl_update(
-                            s, c, w[v], osem, lam_, minv, d, copy),
+                            s, c, w[v], osem, lam, minv, d, copy),
                             psi, conv(q, k2, v, i + v), ws)
                         if pad:
                             psi = x = restore(psi)
                         lap(MESH_UPDATE)
         return psi
 
-    def run_lowrank(psi):
-        """z-sharded lowrank RL: unrolled per-view kernels with adaptive
-        ranks, the bf16 phase schedule (iteration + view), conv2 in delta
-        form K2 (x) (q - 1), exact-FFT entries where a kernel missed its
-        tolerance. Sequential scheme: `run_sequential`, with a bf16
-        operand where a conv's entry holds bf16 matrices (an exact-FFT
-        entry reads float32). The parallel scheme runs the plain
-        chain."""
-        mats = [e["mat"] for e in mesh.first(k1) + mesh.first(k2)
-                if "mat" in e]
-        n_phases = mats[0][0].shape[0] if mats else 1
-
-        def conv(xs, ks, v, step):
-            e = mesh.first(ks)[v]
-            if "fft" in e:
-                return fft_conv(xs, each(lambda p, k: k[v]["fft"], ks))
-            ph = step % n_phases
-            return mat_conv(xs, each(lambda p, k: tuple(
-                M[ph] for M in k[v]["mat"]), ks), e["rad"])
-
-        def view_delta(p_, v, step):
-            q = restore(quotient(conv(p_, k1, v, step), v))
-            if "mat" in mesh.first(k2)[v]:
-                return conv(each(lambda p, x: x - 1.0, q), k2, v, step)
-            return each(lambda p, c: c - 1.0, conv(q, k2, v, step))
-
-        if scheme == "sequential":
-            return run_sequential(
-                psi, conv, lambda v: "mat" in mesh.first(k2)[v],
-                lambda ks, v: operand_dtype(mesh.first(ks)[v])
-                == torch.bfloat16)
+    def run_parallel(psi):
+        """The parallel scheme: every view's factor at the iteration's
+        estimate, then one update. At every position the quotient is one
+        `rl_quotient`, written in the dtype its convolution reads; view
+        u's term is w_u * d_u, d_u its second conv, less 1 unless
+        `delta(u)`; the terms sum from one where `running`, else 1 is
+        added to their sum, summed over a view axis by `psum`; the new
+        estimate is `regularize_` of psi times that factor."""
         for i in range(n_iter):
             with iteration():
-                factor = each(lambda p, x: torch.ones(
-                    (), device=x.device), psi)
-                for v in range(V):
-                    with view():
-                        factor = each(
-                            lambda p, f, w, d, v=v: f + w[v] * d,
-                            factor, ws, view_delta(psi, v, i + v))
-                        lap(MESH_UPDATE)
-                psi = restore(each(lambda p, x, f: regularize(x * f),
-                                   psi, factor))
-                lap(MESH_UPDATE)
-        return psi
-
-    def run_stacked(psi):
-        """View-axis lowrank RL on the (view, z) mesh: each view shard
-        convolves its views with its stacked matrices, and the parallel
-        update factor is summed over the view axis. The bf16 phase
-        advances per iteration here, the same for every view on every
-        shard (the z-only engine advances it per view-update)."""
-        (K1, rad1), (K2, rad2) = stacked
-        n_phases = mesh.first(K1[0]).shape[1]
-
-        def conv(xs, K, rads, u, ph):
-            return mat_conv(xs, each(lambda p, *trip: tuple(
-                M[u, ph] for M in trip), *K), rads)
-
-        for i in range(n_iter):
-            ph = i % n_phases
-            partial = None
-            with iteration():
+                acc = (each(lambda p, x: torch.ones((), device=x.device), psi)
+                       if running else None)
                 for u in range(Vl):
                     with view():
-                        q = restore(quotient(conv(psi, K1, rad1, u, ph), u))
-                        d = conv(each(lambda p, x: x - 1.0, q), K2, rad2, u,
-                                 ph)
-                        partial = add(partial, each(
-                            lambda p, w, dd, u=u: w[u] * dd, ws, d))
-                        lap(MESH_UPDATE)
-                psi = parallel_update(psi, psum(partial, mesh, view_axis))
-                lap(MESH_UPDATE)
-        return psi
-
-    def run_plain(psi):
-        """FFT or separable backend. Sequential scheme: `run_sequential`
-        in float32, which these convolutions read. The parallel scheme
-        runs the plain chain."""
-        def conv(xs, ks, u, step=None):
-            local = each(lambda p, k: k[v0[p] + u], ks)
-            if backend == "separable":
-                return sep_conv(xs, local)
-            return fft_conv(xs, local)
-
-        def conv2(p_, u):
-            q = restore(quotient(conv(p_, k1, u), u))
-            return conv(q, k2, u)
-
-        if scheme == "sequential":
-            return run_sequential(psi, conv, lambda v: False,
-                                  lambda ks, v: False)
-        for _ in range(n_iter):
-            with iteration():
-                partial = None
-                for u in range(Vl):
-                    with view():
-                        partial = add(partial, each(
-                            lambda p, w, c, u=u: w[u] * (c - 1.0), ws,
-                            conv2(psi, u)))
+                        d, b = delta(u), bf16(k2, u)
+                        q = restore(each(lambda p, img, c: rl_quotient(
+                            img[u], c, d, b), imgs,
+                            conv(psi, k1, u, step(i, u))))
+                        t = each(lambda p, w, c: w[u] * (
+                            c if d else c - 1.0), ws,
+                            conv(q, k2, u, step(i, u)))
+                        acc = t if acc is None else each(
+                            lambda p, a, b: a + b, acc, t)
                         lap(MESH_UPDATE)
                 if view_axis is not None:
-                    partial = psum(partial, mesh, view_axis)
-                psi = parallel_update(psi, partial)
+                    acc = psum(acc, mesh, view_axis)
+                psi = restore(each(lambda p, x, f: regularize_(
+                    x * (f if running else 1.0 + f), lam, minv), psi, acc))
                 lap(MESH_UPDATE)
         return psi
 
-    if stacked is not None:
-        engine = run_stacked
-    elif backend == "lowrank":
-        engine = run_lowrank
-    else:
-        engine = run_plain
+    engine = run_sequential if scheme == "sequential" else run_parallel
 
     def execute():
         if not profiler_active():

@@ -164,7 +164,9 @@ def test_blocked_lowrank_kernel_wrappers_match_plain_chain(monkeypatch):
         return zpass(Mz, vm, windows)
 
     def plain(xp, Tz, My, Mx, *rads, z_off=0):
-        return conv_lowrank_folded(xp, Tz, My, Mx)
+        # a float32 result whatever the operand's dtype (a bf16 quotient
+        # is already in the matrices' dtype), as the wrapper gives
+        return conv_lowrank_folded(xp.float(), Tz, My, Mx)
 
     for dtype in ("float32", "bfloat16"):
         kw = _kw("lowrank", 2, dtype)

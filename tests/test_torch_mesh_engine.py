@@ -4,14 +4,15 @@
 On the CPU: shard-by-shard staging (`stage_slabs`) against the whole-stack
 staging it replaced (written out below in numpy), at an even and a ragged
 depth and on a (view, z) mesh; the spans, per-card phases and halo
-counters of a traced run on a 4-position mesh; the sequential view
-update on `rl_quotient` / `rl_update` against the plain chain, bit for
-bit (lowrank, FFT and separable backends), and the bf16 operands it asks
-for. On the card (`cuda` marker): `conv_lowrank_folded_fused` at one
-card's slab shape of the six-view 1024^3 deployment, z-sharded over four
-cards, against the plain chain; the halo exchange between two cards
-against one device's; the sequential engine on the update kernels
-against the plain chain.
+counters of a traced run on a 4-position mesh; the view update on
+`rl_quotient` / `rl_update` against the plain chain, bit for bit
+(lowrank, FFT and separable backends; the sequential scheme, and the
+parallel one on a z mesh and on a (view, z) mesh), and the bf16 operands
+the sequential scheme asks for. On the card (`cuda` marker):
+`conv_lowrank_folded_fused` at one card's slab shape of the six-view
+1024^3 deployment, z-sharded over four cards, against the plain chain;
+the halo exchange between two cards against one device's; the
+sequential engine on the update kernels against the plain chain.
 
 Imports nothing of JAX, so the card's machine runs it with
 `--noconftest`."""
@@ -194,12 +195,30 @@ SEQUENTIAL_RUNS = {"bf16": ("lowrank", "bfloat16", False),
                    "mixed": ("lowrank", "bfloat16", True),
                    "fft": ("fft", "bfloat16", False),
                    "separable": ("separable", "bfloat16", False)}
+# parallel runs: the same three, and whether the views split over the
+# view axis of a (view, z) = (2, 2) mesh
+PARALLEL_RUNS = {"parallel_bf16": ("lowrank", "bfloat16", False, False),
+                 "parallel_mixed": ("lowrank", "bfloat16", True, False),
+                 "parallel_fft": ("fft", "bfloat16", False, False),
+                 "parallel_separable": ("separable", "bfloat16", False,
+                                        False),
+                 "view_bf16": ("lowrank", "bfloat16", False, True),
+                 "view_float32": ("lowrank", "float32", False, True),
+                 "view_fft": ("fft", "bfloat16", False, True)}
 
 
 def _sequential_runner(run, depth, lam, devices, views=3, n_iter=3):
-    """A sequential runner of `views` views of (depth, 12, 14) on a
-    4-position z mesh over `devices`."""
-    backend, dtype, turned = SEQUENTIAL_RUNS[run]
+    """A runner of `views` views of (depth, 12, 14) on a 4-position mesh
+    over `devices`: a z mesh in the sequential scheme, or for a run of
+    PARALLEL_RUNS in the parallel scheme, on the (view, z) mesh with 2
+    views where the run splits them."""
+    split = False
+    if run in SEQUENTIAL_RUNS:
+        (backend, dtype, turned), scheme = SEQUENTIAL_RUNS[run], "sequential"
+    else:
+        backend, dtype, turned, split = PARALLEL_RUNS[run]
+        scheme = "parallel"
+        views = 2 if split else views
     rng = np.random.default_rng(depth)
     imgs, w = _inputs(rng, views, (depth, 12, 14))
     psfs = [gaussian_psf((7, 7, 7), (1.0, 1.3, 1.1)),
@@ -211,13 +230,16 @@ def _sequential_runner(run, depth, lam, devices, views=3, n_iter=3):
         kw = dict(psf_rank=4, psf_rank_tol=1e-3, psf_rank_hard=4)
     params = DeconvolutionParameters(
         num_iterations=n_iter, conv_backend=backend, lowrank_dtype=dtype,
-        tikhonov_lambda=lam, **kw)
-    mesh = make_mesh(("z",), (4,), devices=devices)
+        tikhonov_lambda=lam, scheme=scheme, **kw)
+    axes = dict(view_axis="view") if split else {}
+    mesh = make_mesh(("view", "z") if split else ("z",),
+                     (2, 2) if split else (4,), devices=devices)
     run_ = sharded_deconvolution_runner(
         DeconvolutionViews(imgs, w, psfs, float(views)), params, mesh,
-        device_result=True)
-    # the turned view's two kernels on FFT, the others' on matrices
-    assert backend != "lowrank" or [
+        device_result=True, **axes)
+    # the turned view's two kernels on FFT, the others' on matrices (the
+    # view axis stacks its matrices: no entries)
+    assert backend != "lowrank" or split or [
         ["fft" in e for e in ks] for ks in run_.entries] == [
         [False] * (views - 1) + [turned]] * 2
     return run_
@@ -245,18 +267,20 @@ def _shards(run_):
     return torch.cat([s.cpu() for s in run_()])
 
 
-@pytest.mark.parametrize("run", sorted(SEQUENTIAL_RUNS))
+@pytest.mark.parametrize("run", sorted(SEQUENTIAL_RUNS)
+                         + sorted(PARALLEL_RUNS))
 @pytest.mark.parametrize("lam", [0.0, 6e-4])
 @pytest.mark.parametrize("depth", [32, 37])
 def test_sequential_lowrank_view_update_is_the_plain_chain(run, lam, depth,
                                                            monkeypatch):
-    """The sharded sequential engine on the update's wrappers, at an even
-    and a ragged depth, with Tikhonov on and off, on bf16 and float32
-    lowrank matrices, beside exact-FFT entries, and on the FFT and
-    separable backends, equals bit for bit the same engine on the
-    wrappers' plain versions and on the float32 chain it ran before
-    (every operand cast inside its conv); repeated runs return the same
-    shards and leave the staged start as it was."""
+    """The sharded engine on the update's wrappers, at an even and a
+    ragged depth, with Tikhonov on and off, on bf16 and float32 lowrank
+    matrices, beside exact-FFT entries, and on the FFT and separable
+    backends, in the sequential scheme and in the parallel one (the
+    views also split over a view axis), equals bit for bit the same
+    engine on the wrappers' plain versions and on the float32 chain it
+    ran before (every operand cast inside its conv); repeated runs return
+    the same shards and leave the staged start as it was."""
     run_ = _sequential_runner(run, depth, lam, [CPU] * 4)
     start = [s.clone() for s in run_.start]
     got = _shards(run_)

@@ -1,13 +1,16 @@
 """The RL view update's elementwise passes (spim_registration_tpu_torch/
-ops/kernels/rl_update.py, csrc/rl_update.cu) and the engine that runs
-them (deconv/lucy_richardson.py `_rl_iterate`).
+ops/kernels/rl_update.py, csrc/rl_update.cu) and the in-memory and
+out-of-core engines that run them (deconv/lucy_richardson.py
+`_rl_iterate`, deconv/blocked.py); the mesh engine's are in
+test_torch_mesh_engine.py.
 
-On the CPU: the wrappers' plain versions are the chain the engine ran
-before, bit for bit; the engine through them gives the estimate of that
-chain, bit for bit; it asks for bf16 operands exactly where a convolution
-on the lowrank kernels reads bf16; nothing launches. On a CUDA card
-(`-m cuda`): each kernel against its plain version, bitwise, and a runner
-against the same runner on the plain versions, bitwise.
+On the CPU: the wrappers' plain versions are the chain the engines ran
+before, bit for bit; the engines through them, in both schemes, give the
+estimate of that chain, bit for bit; they ask for bf16 operands exactly
+where a convolution on the lowrank kernels reads bf16; nothing launches.
+On a CUDA card (`-m cuda`): each kernel against its plain version,
+bitwise, and each engine against the same engine on the plain versions,
+bitwise.
 
 This file imports neither jax nor the reference, so on a machine with a
 card and no JAX it runs on its own:
@@ -25,7 +28,13 @@ from spim_registration_tpu_torch.deconv import (
     DeconvolutionRunner,
     gaussian_psf,
 )
+from spim_registration_tpu_torch.deconv import blocked
 from spim_registration_tpu_torch.deconv import lucy_richardson as lr
+from spim_registration_tpu_torch.deconv.blocked import (
+    ArrayStore,
+    BlockedDeconvolutionInputs,
+    BlockedDeconvolutionRunner,
+)
 from spim_registration_tpu_torch.ops.fftconv import fft_convolve
 from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 from spim_registration_tpu_torch.ops.kernels import rl_update as ru
@@ -46,6 +55,12 @@ def _chain_quotient(image, conv1, delta, bf16):
     if delta:
         q = q - 1.0
     return q.to(torch.bfloat16) if bf16 else q
+
+
+def _f32_chain_quotient(image, conv1, delta, bf16):
+    """`_chain_quotient` in float32 whatever the conv reads: the engines'
+    quotient before the kernels wrote bf16 operands."""
+    return _chain_quotient(image, conv1, delta, False)
 
 
 def _chain_update(psi, conv2, weight, lam, delta):
@@ -265,24 +280,95 @@ def test_engine_asks_for_bf16_operands_where_the_conv_reads_bf16(
 
 @pytest.mark.parametrize("run", sorted(RUNS))
 def test_parallel_scheme_keeps_the_plain_chain(run, monkeypatch):
-    """The parallel scheme calls neither wrapper and writes no bf16
-    operand: its quotient is the plain version's float32 field."""
+    """The parallel scheme's quotient is `rl_quotient`, once a view, in
+    bf16 where its conv's entry holds bf16 matrices on the kernels' path;
+    `rl_update` is never called; the estimate is bit for bit the one of
+    the float32 chain the scheme ran before (every bf16 cast inside its
+    conv)."""
     r = _runner(run, True, (12, 14, 16), views=3, scheme="parallel")
-    want = r.run()
     asked = []
 
     def refuse(*a):
-        raise AssertionError("a wrapper was called")
+        raise AssertionError("rl_update was called")
 
-    def plain(*a):
+    def spy(*a):
         asked.append(a[2:])
-        return ru.rl_quotient_reference(*a)
+        return ru.rl_quotient(*a)
 
-    monkeypatch.setattr(lr, "rl_quotient", refuse)
+    monkeypatch.setattr(lr, "rl_quotient", spy)
     monkeypatch.setattr(lr, "rl_update", refuse)
-    monkeypatch.setattr(lr, "rl_quotient_reference", plain)
-    assert_bitwise(r.run(), want)
-    assert len(asked) == 3 * 3 and not any(bf16 for _, bf16 in asked)
+    got = r.run()
+
+    def bf16(e):
+        return bool(RUNS[run].get("lowrank_fused") and "mat" in e
+                    and e["mat"][0].dtype == torch.bfloat16)
+
+    lowrank = run != "fft"
+    k2 = r.k2_ffts if lowrank else [{}] * 3
+    assert asked == [(lowrank and "mat" in k2[v], bf16(k2[v]))
+                     for _ in range(3) for v in range(3)]
+    monkeypatch.setattr(lr, "rl_quotient", _f32_chain_quotient)
+    assert_bitwise(r.run(), got)
+    assert ru.rl_quotient.launches == ru.rl_update.launches == 0
+
+
+def _blocked_chain_update(psi, conv2, weight, osem, lam, min_value,
+                          delta=False):
+    """The out-of-core engine's block update before `rl_update`, out of
+    place."""
+    psi = psi * (1.0 + osem * weight * (conv2 if delta else conv2 - 1.0))
+    if lam is not None:
+        psi = psi / (1.0 + lam * psi)
+    return torch.clamp(psi, min=min_value)
+
+
+def _blocked_run(backend, dtype, block_z, device="cpu"):
+    """The estimate of 3 iterations of the out-of-core engine over 2
+    views of 24 x 12 x 14, the second one's PSF turned."""
+    rng = np.random.default_rng(9)
+    shape = (24, 12, 14)
+    images = rng.random((2,) + shape, dtype=np.float32) + 0.05
+    weights = rng.uniform(0.2, 1.0, (2,) + shape).astype(np.float32)
+    psfs = [gaussian_psf((7, 7, 7), (1.6, 1.0, 1.3)),
+            _rotated_gaussian((7, 7, 7), (1.8, 1.0, 1.1), 25.0)]
+    inputs = BlockedDeconvolutionInputs(
+        [ArrayStore(a) for a in images], [ArrayStore(a) for a in weights],
+        psfs, 1.6)
+    psi = ArrayStore(np.zeros(shape, np.float32))
+    BlockedDeconvolutionRunner(
+        inputs, psi, DeconvolutionParameters(
+            num_iterations=3, conv_backend=backend, lowrank_dtype=dtype,
+            psf_rank=12, psf_rank_tol=1e-4, psf_rank_hard=24,
+            tikhonov_lambda=LAM),
+        block_z=block_z, device=device).run()
+    return torch.from_numpy(psi.array)
+
+
+@pytest.mark.parametrize("block_z", [12, 24])
+@pytest.mark.parametrize("backend,dtype", [("fft", "float32"),
+                                           ("lowrank", "bfloat16"),
+                                           ("lowrank", "float32")])
+def test_blocked_update_is_the_plain_chain(backend, dtype, block_z,
+                                           monkeypatch):
+    """The out-of-core engine's block update through `rl_quotient` and
+    `rl_update` equals bit for bit the chain it ran before (the float32
+    quotient, its bf16 cast inside the conv; the update out of place),
+    with blocks that split the depth and one block of the whole depth.
+    The quotient is bf16 exactly where conv2 reads bf16 matrices."""
+    asked = []
+
+    def spy(*a):
+        asked.append(a[2:])
+        return ru.rl_quotient(*a)
+
+    monkeypatch.setattr(blocked, "rl_quotient", spy)
+    got = _blocked_run(backend, dtype, block_z)
+    lowrank = backend == "lowrank"
+    assert set(asked) == {(lowrank, lowrank and dtype == "bfloat16")}
+    assert len(asked) == 3 * 2 * 24 // block_z
+    monkeypatch.setattr(blocked, "rl_quotient", _f32_chain_quotient)
+    monkeypatch.setattr(blocked, "rl_update", _blocked_chain_update)
+    assert_bitwise(_blocked_run(backend, dtype, block_z), got)
 
 
 def test_lowrank_conv_returns_float32_for_an_operand_in_the_matrix_dtype():
@@ -389,14 +475,40 @@ def test_runner_matches_the_plain_chain_bitwise_on_cuda(run, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_parallel_scheme_launches_no_update_kernel_on_cuda():
-    """On the card the parallel scheme keeps the plain chain: neither
-    kernel launches."""
+def test_parallel_scheme_launches_no_update_kernel_on_cuda(monkeypatch):
+    """On the card the parallel scheme launches the quotient kernel once
+    a view and iteration and the update kernel never, and equals bit for
+    bit the float32 chain it ran before."""
     _cuda_or_skip()
-    r = _runner("lowrank_bf16", True, (40, 44, 48), views=3, device="cuda",
-                scheme="parallel")
+    views = 3
+    r = _runner("lowrank_bf16", True, (40, 44, 48), views=views,
+                device="cuda", scheme="parallel")
     n = ru.rl_quotient.launches, ru.rl_update.launches
     got = r.run()
     torch.cuda.synchronize()
-    assert (ru.rl_quotient.launches, ru.rl_update.launches) == n
+    assert (ru.rl_quotient.launches - n[0],
+            ru.rl_update.launches - n[1]) == (3 * views, 0)
     assert bool(torch.isfinite(got).all())
+    monkeypatch.setattr(lr, "rl_quotient", _f32_chain_quotient)
+    assert_bitwise(r.run(), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,dtype", [("fft", "float32"),
+                                           ("lowrank", "bfloat16")])
+def test_blocked_update_kernels_match_the_plain_chain_on_cuda(
+        backend, dtype, monkeypatch):
+    """The out-of-core engine on the card through the update kernels, one
+    launch of each a block update, equals bit for bit the same engine on
+    the wrappers' plain versions and on the chain it ran before."""
+    _cuda_or_skip()
+    n = ru.rl_quotient.launches, ru.rl_update.launches
+    got = _blocked_run(backend, dtype, 12, "cuda")
+    assert (ru.rl_quotient.launches - n[0],
+            ru.rl_update.launches - n[1]) == (3 * 2 * 2,) * 2
+    monkeypatch.setattr(blocked, "rl_quotient", ru.rl_quotient_reference)
+    monkeypatch.setattr(blocked, "rl_update", ru.rl_update_reference)
+    assert_bitwise(_blocked_run(backend, dtype, 12, "cuda"), got)
+    monkeypatch.setattr(blocked, "rl_quotient", _f32_chain_quotient)
+    monkeypatch.setattr(blocked, "rl_update", _blocked_chain_update)
+    assert_bitwise(_blocked_run(backend, dtype, 12, "cuda"), got)
