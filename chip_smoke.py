@@ -473,8 +473,9 @@ def zpass_alone() -> None:
     """`--zpass-of DIR`: the z pass of DIR's package alone, at rank 22 and
     48 on 256^3 and rank 22 on 208^3 (`seeded_zpass`, seeded volumes,
     seed 0): errors of the banded and dense kernel against
-    `zpass_reference` and `zpass_times`. Builds only zpass; compares two
-    checkouts within one call."""
+    `zpass_reference` and `zpass_times`; then the mesh cell's launch
+    (`zpass_mesh_slab`). Builds only zpass; compares two checkouts within
+    one call."""
     from spim_registration_tpu_torch.ops.kernels import build
     from spim_registration_tpu_torch.ops.kernels import lowrank_conv as lc
 
@@ -498,8 +499,65 @@ def zpass_alone() -> None:
               "errors": errs, "times_ms": zpass_times(lc, mz, vm, wins)})
         del mz, vm
         torch.cuda.empty_cache()
+    bad += zpass_mesh_slab(lc, rng)
     if bad:
         raise AssertionError(f"zpass disagrees with its plain version: {bad}")
+
+
+# The mesh cell's z-pass launch: a card's first z-slab of a 1024-wide
+# z=4 shard (256 planes in two slabs of 128 rows) over its halo-extended
+# rows, P = 256 + 19 - 1 = 274 (rows not 16-byte aligned), at rank 16
+MESH_SLAB = {"rank": 16, "rows": 128, "planes": 256, "taps": 19,
+             "yx": 1024}
+
+
+def zpass_mesh_slab(lc, rng) -> list:
+    """The mesh cell's z-pass launch (`MESH_SLAB`): the first slab's rows
+    of the z band matrices (`deconv.blocked._z_band_matrices`) from seeded
+    19-tap factors, windows `band_blocks(128, 274, 9, 9)`, a seeded
+    274 x 1024 x 1024 volume. Errors against `zpass_reference`,
+    `zpass_times`, and the same launch on the aligned copy (Mz and vm
+    zero-padded to 280 columns and rows, the same windows), which must
+    equal it bit for bit; where the package counts the launches that read
+    Mz from padded rows (`zpass.mz_padded`), that count of the two
+    launches. Returns the failed checks."""
+    from spim_registration_tpu_torch.deconv.blocked import _z_band_matrices
+
+    c = MESH_SLAB
+    hz = (c["taps"] - 1) // 2
+    f = rng.standard_normal((c["rank"], c["taps"])) * 0.3
+    mz = torch.from_numpy(_z_band_matrices(f, c["planes"])[:, :c["rows"]]
+                          .astype(np.float32)).cuda().to(torch.bfloat16)
+    P = mz.shape[2]
+    wins = lc.band_blocks(c["rows"], P, hz, hz)
+    vm = torch.from_numpy(rng.random((P, c["yx"], c["yx"]), dtype=np.float32)
+                          ).cuda().to(torch.bfloat16)
+    pad = -P % 8
+    mz_al = torch.nn.functional.pad(mz, (0, pad)).contiguous()
+    vm_al = torch.nn.functional.pad(vm, (0, 0, 0, 0, 0, pad)).contiguous()
+    before = getattr(lc.zpass, "mz_padded", None)
+    got = lc.zpass(mz, vm, wins)
+    got_al = lc.zpass(mz_al, vm_al, wins)
+    padded = (None if before is None else lc.zpass.mz_padded - before)
+    equal = bool(torch.equal(got, got_al))
+    del got_al
+    want = lc.zpass_reference(mz, vm)
+    errs = {"banded": kernel_error(got, want)}
+    del got, want
+    torch.cuda.empty_cache()
+    times = zpass_times(lc, mz, vm, wins)
+    times["aligned"] = cuda_ms(lambda: lc.zpass(mz_al, vm_al, wins), 20)
+    times["aligned_pipelined"] = cuda_ms_pipelined(
+        lambda: lc.zpass(mz_al, vm_al, wins), 20)
+    emit({"phase": "zpass", "case": "mesh_slab", **c, "P": P,
+          "P_aligned": P + pad, "windows": wins,
+          "plan": lc.zpass_plan(P, wins), "errors": errs,
+          "bitwise_aligned": equal, "mz_padded": padded,
+          "times_ms": times})
+    del mz, vm, mz_al, vm_al
+    torch.cuda.empty_cache()
+    return ([f"mesh_slab {k}" for k, e in errs.items() if not e["ok"]]
+            + ([] if equal else ["mesh_slab aligned copy"]))
 
 
 # The rows pass's seeded cases: (name, rank, (Z, Y, X), whether the dense
@@ -3053,10 +3111,10 @@ def mesh_devices(n: int = MESH_POSITIONS) -> list:
 
 class capture_first:
     """Record the arguments of the first call of `module.name` inside the
-    block (the call still runs). A wrapper counts its launches on its
-    module's name (`zpass.launches += 1`): where that name is the one
-    patched, the spy takes the counts meanwhile and hands them back to
-    the real function on exit."""
+    block (the call still runs). A wrapper keeps its counters on its
+    module's name (`zpass.launches += 1`, `zpass.mz_padded`): where that
+    name is the one patched, the spy carries every integer counter of the
+    real function meanwhile and hands the counts back to it on exit."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.args = module, name, None
@@ -3069,13 +3127,17 @@ class capture_first:
                 self.args = (a, kw)
             return real(*a, **kw)
 
-        spy.launches = self.start = real.launches
+        self.start = {k: v for k, v in vars(real).items()
+                      if type(v) is int}
+        vars(spy).update(self.start)
         self.real, self.spy = real, spy
         setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.real.launches += self.spy.launches - self.start
+        for k, v in self.start.items():
+            setattr(self.real, k, getattr(self.real, k)
+                    + getattr(self.spy, k) - v)
         setattr(self.module, self.name, self.real)
 
 

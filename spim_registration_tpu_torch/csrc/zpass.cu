@@ -49,9 +49,14 @@
 // TN (128 or 64) is a template parameter; TN and ct are picked on the
 // host from the widest window so that a block fits shared memory, two to
 // an SM where they can (`zpass_plan` in ops/kernels/lowrank_conv.py).
-// The copies zero-fill past ragged N, J and window edges; rows of P or J
-// that are not 16-byte aligned take synchronous element-wise copies
-// inside the same kernel.
+// The copies zero-fill past ragged N, J and window edges. Mz is read at a
+// row stride `ldm` of its own, a multiple of 8 elements from a 16-byte
+// aligned base, so every matrix-tile row starts on 16 bytes whatever P
+// is: where P % 8 != 0 (a band matrix over a slab's halo rows has P = n +
+// taps - 1, P % 8 == 2 at 19 taps) the wrapper hands over a copy with
+// padded rows (`zpass_mz_rows` in ops/kernels/lowrank_conv.py).
+// Volume rows (J) that are not 16-byte aligned take synchronous
+// element-wise copies inside the same kernel.
 //
 // The float32 matrices (lowrank_dtype="float32") take a plain SIMT kernel
 // with one thread per output element (any R * N): not the main path, kept
@@ -207,7 +212,7 @@ zpass_bf16_kernel(const __grid_constant__ CUtensorMap out_map,
                   const __nv_bfloat16* __restrict__ vm,
                   __nv_bfloat16* __restrict__ out,
                   const int* __restrict__ win,
-                  int R, int N, int P, long long J, int kpad, int ct,
+                  int R, int N, int ldm, long long J, int kpad, int ct,
                   int use_tma) {
   constexpr int NACC = TN / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -227,10 +232,9 @@ zpass_bf16_kernel(const __grid_constant__ CUtensorMap out_map,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool vecA = P % 8 == 0 && (reinterpret_cast<uintptr_t>(mz) & 15) == 0;
   const bool vecJ = J % 8 == 0 && (reinterpret_cast<uintptr_t>(vm) & 15) == 0;
-  const long long mz_rank = static_cast<long long>(N) * P;
-  const __nv_bfloat16* A0 = mz + static_cast<long long>(n0) * P + k0;
+  const long long mz_rank = static_cast<long long>(N) * ldm;
+  const __nv_bfloat16* A0 = mz + static_cast<long long>(n0) * ldm + k0;
 
   // One rank's matrix tile, K-major core matrices: the 16-byte piece of
   // row m and 8-deep group kb at element ((kb * 8 + m / 8) * 8 + m % 8) * 8,
@@ -240,8 +244,8 @@ zpass_bf16_kernel(const __grid_constant__ CUtensorMap out_map,
       const int m = c / kg;
       const int kb = c - m * kg;
       copy8(dst + ((kb * 8 + (m >> 3)) * 8 + (m & 7)) * 8,
-            src + static_cast<long long>(m) * P + kb * 8,
-            m < rows ? width - kb * 8 : 0, vecA, mz);
+            src + static_cast<long long>(m) * ldm + kb * 8,
+            m < rows ? width - kb * 8 : 0, true, mz);
     }
   };
   // The ct volume windows, MN-major core matrices: the 16-byte piece of
@@ -355,13 +359,13 @@ zpass_bf16_kernel(const __grid_constant__ CUtensorMap out_map,
 __global__ void __launch_bounds__(F32_THREADS)
 zpass_f32_kernel(const float* __restrict__ mz, const float* __restrict__ vm,
                  float* __restrict__ out, const int* __restrict__ win,
-                 int R, int N, int P, long long J) {
+                 int R, int N, int ldm, long long J) {
   const long long j = static_cast<long long>(blockIdx.x) * F32_THREADS +
                       threadIdx.x;
   if (j >= J) return;
   for (int rn = blockIdx.y; rn < R * N; rn += gridDim.y) {
     const int tile = (rn % N) / TM;
-    const float* row = mz + static_cast<long long>(rn) * P;
+    const float* row = mz + static_cast<long long>(rn) * ldm;
     float acc = 0.0f;
     for (int k = win[2 * tile]; k < win[2 * tile + 1]; ++k)
       acc = fmaf(row[k], vm[static_cast<long long>(k) * J + j], acc);
@@ -413,7 +417,7 @@ cudaError_t out_tensor_map(CUtensorMap* map, void* out, int R, int N,
 
 template <int TN>
 int launch_bf16(const void* mz, const void* vm, void* out, const int* win,
-                int R, int N, int P, long long J, int kpad, int ct,
+                int R, int N, int ldm, long long J, int kpad, int ct,
                 int use_tma, cudaStream_t s) {
   // The shared-memory limits, once per device (a host call that would
   // otherwise sit in front of every launch).
@@ -443,7 +447,7 @@ int launch_bf16(const void* mz, const void* vm, void* out, const int* win,
   zpass_bf16_kernel<TN><<<grid, THREADS, bytes, s>>>(
       map, static_cast<const __nv_bfloat16*>(mz),
       static_cast<const __nv_bfloat16*>(vm),
-      static_cast<__nv_bfloat16*>(out), win, R, N, P, J, kpad, ct, use_tma);
+      static_cast<__nv_bfloat16*>(out), win, R, N, ldm, J, kpad, ct, use_tma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,21 +471,25 @@ int spim_zpass_smem(int tn, int kpad, int ct) {
 
 // dtype: 0 = bfloat16, 1 = float32. `win` holds (k0, k1) int32 pairs, one
 // per TM-row tile of N, on the device; k0 % 16 == 0 and k1 - k0 <= kpad.
+// ldm: the row stride of Mz in elements (rank r's rows start at r * N *
+// ldm), at least P; for bfloat16 a multiple of 8 with Mz 16-byte aligned.
 // tn / kpad / ct: the bf16 kernel's column tile, padded window depth and
 // column tiles a block (from `zpass_plan`); tma: 1 to store through a TMA
 // tensor map (J % 8 == 0, `out` 16-byte aligned; an error when the map
 // cannot be built), 0 for per-thread stores. All four are ignored for
 // float32. Returns a cudaError_t.
 int spim_zpass(const void* mz, const void* vm, void* out, const int* win,
-               int R, int N, int P, long long J, int dtype, int tn, int kpad,
-               int ct, int tma, void* stream) {
+               int R, int N, int P, int ldm, long long J, int dtype, int tn,
+               int kpad, int ct, int tma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ldm < P) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (spim_zpass_smem(tn, kpad, ct) < 0)
+    if (spim_zpass_smem(tn, kpad, ct) < 0 || ldm % 8 ||
+        reinterpret_cast<uintptr_t>(mz) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
-    return tn == 128 ? launch_bf16<128>(mz, vm, out, win, R, N, P, J, kpad,
+    return tn == 128 ? launch_bf16<128>(mz, vm, out, win, R, N, ldm, J, kpad,
                                         ct, tma, s)
-                     : launch_bf16<64>(mz, vm, out, win, R, N, P, J, kpad,
+                     : launch_bf16<64>(mz, vm, out, win, R, N, ldm, J, kpad,
                                        ct, tma, s);
   }
   if (dtype == 1) {
@@ -491,7 +499,7 @@ int spim_zpass(const void* mz, const void* vm, void* out, const int* win,
               static_cast<unsigned>(R * N < 65535 ? R * N : 65535));
     zpass_f32_kernel<<<grid, F32_THREADS, 0, s>>>(
         static_cast<const float*>(mz), static_cast<const float*>(vm),
-        static_cast<float*>(out), win, R, N, P, J);
+        static_cast<float*>(out), win, R, N, ldm, J);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);

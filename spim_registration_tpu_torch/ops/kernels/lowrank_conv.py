@@ -28,7 +28,9 @@ Beside each wrapper sits its plain PyTorch version (`zpass_reference`,
 numerics. A wrapper takes the plain version only for tensors on the CPU;
 for CUDA tensors it launches its kernel or raises — there is no fallback.
 Each wrapper counts its kernel launches in a plain integer attribute
-(`zpass.launches`, `sl_rows.launches`, `zfused.launches`).
+(`zpass.launches`, `sl_rows.launches`, `zfused.launches`); `zpass` also
+counts its launches that read Mz at a row stride past P, the padded rows
+of `zpass_mz_rows` (`zpass.mz_padded`).
 
 The TPU-only planning of the reference (VMEM plans, the X % 128 lane
 requirement, the y/x banding gate at 384, the XLA chain for what the plan
@@ -228,9 +230,8 @@ def _zpass_lib():
     lib.spim_zpass_tile_rows.restype = ctypes.c_int
     lib.spim_zpass_smem.argtypes = [ctypes.c_int] * 3
     lib.spim_zpass_smem.restype = ctypes.c_int
-    lib.spim_zpass.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.spim_zpass.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.spim_zpass.restype = ctypes.c_int
     if lib.spim_zpass_tile_rows() != ZPASS_TILE_ROWS:
         raise RuntimeError("csrc/zpass.cu tile rows differ from "
@@ -324,6 +325,55 @@ def _zpass_setup(windows, N: int, P: int, bf16: bool,
     return (table.reshape(-1),) + plan
 
 
+# The bf16 z pass copies its matrix tiles by 16-byte cp.async: every row
+# of Mz it reads starts on 16 bytes (8 elements).
+_MZ_ROW_ALIGN = 8
+
+
+def zpass_mz_row_stride(shape, strides, ptr: int, bf16: bool):
+    """The row stride (in elements) at which the z pass reads an Mz of
+    `shape` (R, N, P) and `strides` from address `ptr` as it lies, or None
+    where it reads a copy (`zpass_mz_rows`). The kernels read rank r's row
+    n at (r * N + n) * stride, so Mz has to be contiguous; the bf16
+    kernel's copies also need every row on a 16-byte boundary: a 16-byte
+    aligned base and P a multiple of 8 (a band matrix over a slab's halo
+    rows has P = n + taps - 1, P % 8 == 2 at 19 taps), or a single row
+    (R = N = 1), whose stride is never used and is given as P rounded up
+    to 8."""
+    R, N, P = shape
+    if any(n > 1 and st != want
+           for n, st, want in zip(shape, strides, (N * P, P, 1))):
+        return None
+    if not bf16:
+        return P
+    if ptr % (2 * _MZ_ROW_ALIGN):
+        return None
+    if R * N == 1:
+        return _round_up(P, _MZ_ROW_ALIGN)
+    return P if P % _MZ_ROW_ALIGN == 0 else None
+
+
+def zpass_mz_rows(Mz: torch.Tensor) -> tuple:
+    """(mz, ldm): Mz (R, N, P) as the z pass reads it and its row stride
+    in elements. Mz itself where its layout allows
+    (`zpass_mz_row_stride`), else a contiguous (R, N, ldm) copy with Mz in
+    its first P columns, ldm being P rounded up to 8 for bfloat16 (the
+    padding lies outside every window and is never read) and P for
+    float32. Mz's rows have to be contiguous, as a z-slab's rows of a
+    contiguous Mz are; other layouts raise ValueError."""
+    R, N, P = Mz.shape
+    if P > 1 and Mz.stride(2) != 1:
+        raise ValueError("zpass: inputs must be contiguous (Mz: each row)")
+    bf16 = Mz.dtype == torch.bfloat16
+    ldm = zpass_mz_row_stride(Mz.shape, Mz.stride(), Mz.data_ptr(), bf16)
+    if ldm is not None:
+        return Mz, ldm
+    ldm = _round_up(P, _MZ_ROW_ALIGN) if bf16 else P
+    rows = torch.empty((R, N, ldm), dtype=Mz.dtype, device=Mz.device)
+    rows[:, :, :P] = Mz
+    return rows, ldm
+
+
 def zpass_tma_store(out: torch.Tensor) -> bool:
     """Whether the bf16 z pass writes `out` (R, N, Y, X) through a TMA
     tensor map: rows of a multiple of 16 bytes from a 16-byte aligned
@@ -363,10 +413,14 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     the dense contraction. CPU tensors take `zpass_reference`. The bf16
     kernel takes any R, N, P and Y * X with windows of at most
     ZPASS_MAX_WINDOW (560) columns, and raises ValueError beyond
-    (`zpass_plan`); the f32 kernel takes any window."""
+    (`zpass_plan`); the f32 kernel takes any window. vm is contiguous; Mz
+    has contiguous rows, and the kernel reads it as `zpass_mz_rows` gives
+    it (a copy where Mz is not contiguous, or for bfloat16 where its rows
+    do not start on 16 bytes)."""
     if Mz.device.type == "cpu" and vm.device.type == "cpu":
         return zpass_reference(Mz, vm)
-    code = _check_cuda("zpass", Mz, vm)
+    mz, ldm = zpass_mz_rows(Mz)
+    code = _check_cuda("zpass", mz, vm)
     R, N, P = Mz.shape
     P2, Y, X = vm.shape
     if P2 != P:
@@ -376,16 +430,20 @@ def zpass(Mz: torch.Tensor, vm: torch.Tensor, windows=None) -> torch.Tensor:
     table, tn, kpad, ct = _zpass_setup(windows, N, P, code == 0, Mz.device)
     out = torch.empty((R, N, Y, X), dtype=Mz.dtype, device=Mz.device)
     err = _zpass_lib().spim_zpass(
-        Mz.data_ptr(), vm.data_ptr(), out.data_ptr(), table.data_ptr(),
-        R, N, P, Y * X, code, tn, kpad, ct, int(zpass_tma_store(out)),
+        mz.data_ptr(), vm.data_ptr(), out.data_ptr(), table.data_ptr(),
+        R, N, P, ldm, Y * X, code, tn, kpad, ct, int(zpass_tma_store(out)),
         # the current stream's handle, without building a Stream object
         torch._C._cuda_getCurrentRawStream(Mz.get_device()))
     _raise_on(err, "zpass")
     zpass.launches += 1
+    zpass.mz_padded += int(ldm > P)
     return out
 
 
 zpass.launches = 0
+# launches that read Mz at a row stride past P (the padded rows of
+# `zpass_mz_rows`)
+zpass.mz_padded = 0
 
 
 def sl_rows(a: torch.Tensor, My: torch.Tensor, Mx: torch.Tensor,
@@ -462,7 +520,7 @@ def conv_lowrank_folded_fused(vol: torch.Tensor, Mz: torch.Tensor,
     def run(mz: torch.Tensor, off: int) -> torch.Tensor:
         win = (band_blocks(mz.shape[1], P, rad_z, z_off + off)
                if rad_z is not None else None)
-        return sl_rows(zpass(mz.contiguous(), vm, win), My, Mx, rad_y, rad_x)
+        return sl_rows(zpass(mz, vm, win), My, Mx, rad_y, rad_x)
 
     slabs = _z_slabs(N, Mz.shape[0], Y, X, Mz.element_size())
     if len(slabs) == 1:

@@ -476,6 +476,65 @@ def test_kernels_match_plain_on_cuda(dtype):
 
 
 @pytest.mark.cuda
+def test_zpass_unaligned_rows_match_aligned_copy_on_cuda():
+    """The bf16 z pass on band matrices over a slab's halo rows, as the
+    mesh and the out-of-core engine stage them (`_z_band_matrices`, P =
+    rows + taps - 1, windows `band_blocks(n, P, 9, off)` at a slab
+    offset): at P = 2, 4, 6 (mod 8), at an odd P, on an Mz whose base
+    lies 4 and 8 bytes past a 16-byte boundary, and on a single row (R =
+    N = 1); each both as a contiguous Mz and as a z-slab's rows (the
+    lowrank conv's route). Each launch equals, bit for bit, the same
+    kernel on the aligned copy (Mz and vm zero-padded to a multiple of 8
+    columns and rows, the same windows), lies within one bf16 ULP of the
+    output's scale of `zpass_reference` and of the float32 kernel on the
+    unpadded Mz (which reads its rows at stride P), and `zpass.mz_padded`
+    counts the launches that read Mz at a row stride past P."""
+    _cuda_or_skip()
+    from spim_registration_tpu_torch.deconv.blocked import _z_band_matrices
+
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    rng = np.random.default_rng(0)
+    taps, hz, s0 = 19, 9, 32
+
+    def close(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(want.float().abs().max()), err
+
+    # (rank, rows of the band matrices: P = rows + 18, rows of the slab,
+    # bytes past a 16-byte boundary of the contiguous Mz's base)
+    for R, n_out, n, shift in ((5, 96, None, 0), (5, 98, None, 0),
+                               (5, 100, None, 0), (5, 97, None, 0),
+                               (5, 102, None, 4), (5, 102, None, 8),
+                               (5, 102, None, 0), (1, 98, 1, 0),
+                               (1, 98, 1, 4)):
+        f = rng.standard_normal((R, taps)) * 0.3
+        full = torch.from_numpy(_z_band_matrices(f, n_out)
+                                .astype(np.float32)).to(dev).to(dt)
+        slab = full[:, s0:] if n is None else full[:, s0:s0 + n]
+        N, P = slab.shape[1], slab.shape[2]
+        buf = torch.zeros(slab.numel() + 8, dtype=dt, device=dev)
+        Mz = buf[shift // 2:shift // 2 + slab.numel()].view(R, N, P)
+        Mz.copy_(slab)
+        assert Mz.is_contiguous() and Mz.data_ptr() % 16 == shift
+        vm = torch.from_numpy(rng.standard_normal((P, 16, 64))
+                              .astype(np.float32)).to(dev).to(dt)
+        wins = lc.band_blocks(N, P, hz, hz + s0)
+        pad = -P % 8
+        Mz_al = torch.nn.functional.pad(slab, (0, pad)).contiguous()
+        vm_al = torch.nn.functional.pad(vm, (0, 0, 0, 0, 0, pad))
+        assert lc.zpass_mz_rows(Mz_al) == (Mz_al, P + pad)
+        want = lc.zpass(Mz_al, vm_al, wins)
+        before = lc.zpass.mz_padded
+        for got in (lc.zpass(Mz, vm, wins), lc.zpass(slab, vm, wins)):
+            assert torch.equal(got, want), (R, n_out, n, shift)
+        assert lc.zpass.mz_padded == before + 2 * (pad > 0), (n_out, shift)
+        close(want, lc.zpass_reference(slab, vm))
+        close(want, lc.zpass(slab.float(), vm.float(), wins))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_segtopk_matches_plain_on_cuda():
     """segtopk against its plain version, exactly: sparse fields, equal
     values inside a segment, overflowing and all--inf segments, a ragged

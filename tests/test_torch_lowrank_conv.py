@@ -85,6 +85,56 @@ def test_zpass_plain_matches_pallas_interpret(rng, mode, dt):
     _assert_close(got.float().numpy(), want, dt, atol32=1e-4)
 
 
+@pytest.mark.parametrize("shift", [0, 2, 4, 8])
+@pytest.mark.parametrize("P", range(272, 280))
+def test_zpass_mz_row_stride(P, shift):
+    """The z pass's reading of Mz (R, N, P), for each P % 8 and a base 0,
+    2, 4 and 8 bytes past a 16-byte boundary: the bf16 kernel's 16-byte
+    copies read a contiguous Mz as it lies only where every row starts on
+    16 bytes (P a multiple of 8, base aligned; a single row needs only
+    the base, and is read at P rounded up to 8), else from the copy
+    `zpass_mz_rows` makes, whose rows are P rounded up to 8; the f32
+    kernel reads any contiguous rows; a z-slab's rows of a larger matrix,
+    or rows padded past P, are copied for both, and rows that are not
+    contiguous raise. P = 274 is the mesh
+    cell's halo-extended slab (256 rows + 19 taps - 1)."""
+    R, N, P8 = 3, 5, -(-P // 8) * 8
+    ptr = 0x7F0000000000 + shift
+    aligned = P % 8 == 0 and shift == 0
+    assert lc.zpass_mz_row_stride((R, N, P), (N * P, P, 1), ptr,
+                                  True) == (P if aligned else None)
+    assert lc.zpass_mz_row_stride((R, N, P), (N * P, P, 1), ptr,
+                                  False) == P
+    assert lc.zpass_mz_row_stride((1, 1, P), (P, P, 1), ptr, True) == (
+        P8 if shift == 0 else None)                    # a single row
+    assert lc.zpass_mz_row_stride((1, 1, P), (7, 3, 1), ptr, False) == P
+    assert lc.zpass_mz_row_stride((R, N, P), (N * P8, P8, 1), ptr - shift,
+                                  True) == (P if P == P8 else None)
+    assert lc.zpass_mz_row_stride((R, N, P), (2 * N * P, P, 1), ptr - shift,
+                                  False) is None       # a z-slab's rows
+    assert lc.zpass_mz_row_stride((R, N, P), (N * P, 1, N), ptr - shift,
+                                  False) is None       # transposed rows
+    full = torch.from_numpy(np.arange(R * 2 * N * P, dtype=np.float32)
+                            .reshape(R, 2 * N, P))
+    for dt in (torch.bfloat16, torch.float32):
+        bf16 = dt == torch.bfloat16
+        # the slab is copied; the single row (strides of no matter) only
+        # where bf16 finds its base off 16 bytes
+        for slab in (full.to(dt)[:, N:], full.to(dt)[:1, N + 1:N + 2]):
+            rows, ldm = lc.zpass_mz_rows(slab)
+            assert ldm == (P8 if bf16 else P)
+            assert torch.equal(rows[:, :, :P], slab)
+            assert (rows is slab) == (slab.shape[1] == 1 and not (
+                bf16 and slab.data_ptr() % 16))
+            if rows is not slab:
+                assert rows.shape == slab.shape[:2] + (ldm,)
+                assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+            assert lc.zpass_mz_row_stride(rows.shape, rows.stride(),
+                                          rows.data_ptr(), bf16) == ldm
+        with pytest.raises(ValueError, match="contiguous"):
+            lc.zpass_mz_rows(full.to(dt).transpose(1, 2))
+
+
 @pytest.mark.parametrize("dt,rad", [(torch.float32, None),
                                     (torch.bfloat16, None),
                                     (torch.bfloat16, 9)],
