@@ -418,12 +418,14 @@ def _require_h5py(args) -> None:
 
 
 def cmd_fuse(args):
-    from spim_registration_tpu_torch.fuse.weighted_avg import fuse_views
+    from spim_registration_tpu_torch.fuse.weighted_avg import TimelapseFusion
 
     _require_h5py(args)
     ds = _dataset_with_loader(args.xml)
     cfg = _load_config(args)
     mesh = _mesh_from_args(args)
+    # one host array for every timepoint, written out before the next
+    fuse = TimelapseFusion(cfg.fusion, args.device)
     for tp in ds.timepoints():
         views = ds.views_of_timepoint(tp)
         vols = [ds.get_image(v.view_id) for v in views]
@@ -445,8 +447,7 @@ def cmd_fuse(args):
                                      mesh=mesh,
                                      axis_name=mesh.axis_names[-1])
         else:
-            out = fuse_views(vols, models, bbox, cfg.fusion,
-                             device=args.device)
+            out = fuse(vols, models, bbox)
         if _is_primary() and out is not None:
             _export_volume(args, ds, out, tp, bbox, "fused")
 

@@ -7,6 +7,7 @@ from spim_registration_tpu_torch.fuse.bounding_box import (  # noqa: F401
 )
 from spim_registration_tpu_torch.fuse.weighted_avg import (  # noqa: F401
     FusionParameters,
+    TimelapseFusion,
     fuse_dataset,
     fuse_views,
 )

@@ -9,9 +9,20 @@ sum(w*v)/sum(w). Per view, on the concrete world->view matrix:
 - general affine: 8-corner gathers (`ops.resample.trilinear_sample`).
 
 Output rows go through in z-chunks (~16M voxels unless pinned); each
-chunk accumulates all views on the device and is copied to the host.
+chunk accumulates all views on the device and is copied straight into its
+rows of the host array: a new one, or the caller's `out`. `TimelapseFusion`
+(the CLI's `fuse`) passes one array for every timepoint, page-locked where
+the device is to write into it at the link's rate.
 The reference groups views so its compiled program does not grow with
 the view count; eager PyTorch needs no such grouping.
+
+Tracing: `COUNTERS` counts what `fuse_views` did in the process (always
+on: chunks, view-chunks by path, bytes to and from the device). While a
+torch profiler runs, a `fuse_views` call is the span `spim/fuse.run`
+with its phases (`utils/profiling.py` `PhaseTimer`, stream order):
+`upload` (each view onto the device), `content` (each view's content
+weight), `sample` (each chunk's views sampled, weighted and summed) and
+`download` (each chunk to the host array).
 """
 
 from __future__ import annotations
@@ -38,8 +49,25 @@ from spim_registration_tpu_torch.ops.resample import (
     trilinear_sample,
 )
 from spim_registration_tpu_torch.utils.device import resolve_device
+from spim_registration_tpu_torch.utils.profiling import (
+    FUSE_CONTENT,
+    FUSE_DOWNLOAD,
+    FUSE_RUN,
+    FUSE_SAMPLE,
+    FUSE_UPLOAD,
+    RECORDER,
+    PhaseTimer,
+    profiler_active,
+)
 
 _AUTO_CHUNK_VOXELS = 1 << 24
+
+# what `fuse_views` did in this process: output chunks, view-chunks on
+# the separable (axis-aligned) and on the gather (affine) path, and the
+# bytes of the views put on the device and of the chunks brought back
+COUNTERS = dict.fromkeys(("fuse.chunks", "fuse.aligned_view_chunks",
+                          "fuse.affine_view_chunks", "fuse.h2d_bytes",
+                          "fuse.d2h_bytes"), 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,15 +104,21 @@ def _blending_separable(scale, shift, chunk_shape, view_size,
 
 
 def _view_maps(volumes, models, bbox: BoundingBox, params: FusionParameters,
-               device):
+               device, phases: Optional[PhaseTimer] = None):
     """Per view: (vol tensor, content weight or None, world->view map of
-    OUTPUT voxels (3,4) f64, axis-aligned flag)."""
+    OUTPUT voxels (3,4) f64, axis-aligned flag). `phases`: None, or the
+    run's `PhaseTimer`, lapped after each view's upload and content
+    weight."""
     ds = params.downsample
     views = []
     for vol, model in zip(volumes, models):
         v = torch.as_tensor(np.asarray(vol, np.float32), device=device)
+        if phases is not None:
+            phases.lap(FUSE_UPLOAD)
         cw = (content_based_weight(v, params.content)
               if params.use_content_based else None)
+        if phases is not None and cw is not None:
+            phases.lap(FUSE_CONTENT)
         A4 = np.vstack([np.asarray(model, np.float64), [0, 0, 0, 1]])
         # output voxel (i) -> world = bbox.min + ds * i ; then world -> view
         S = np.array([[ds, 0, 0, bbox.min[0]],
@@ -187,18 +221,49 @@ def fuse_views(
     bbox: BoundingBox,
     params: FusionParameters = FusionParameters(),
     device=None,
+    out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Fuse registered views into the bounding box; returns (Z,Y,X) f32 on
     the host. `models[i]` maps view-i voxel coords to world coords.
     `device`: where the fusion runs (default CUDA; "cpu" to run on the
-    host)."""
+    host). `out`: a writeable float32 host array of the output's shape
+    that every voxel is written into and that is returned (None: a new
+    array)."""
     dev = resolve_device(device)
     ds = params.downsample
     out_shape = tuple(s // ds for s in bbox.shape)
     if any(s == 0 for s in out_shape):
         raise ValueError(f"empty bounding box {bbox}")
-    views = _view_maps(volumes, models, bbox, params, dev)
-    out = np.zeros(out_shape, np.float32)
+    if out is None:
+        out = np.zeros(out_shape, np.float32)
+    elif (out.shape != out_shape or out.dtype != np.float32
+          or not out.flags.writeable):
+        raise ValueError(f"out is {out.dtype} {out.shape} (writeable: "
+                         f"{out.flags.writeable}), fusion writes float32 "
+                         f"{out_shape}")
+    if not profiler_active():
+        return _fuse(volumes, models, bbox, params, dev, out)
+    # traced: the run's span, and its phases timed in stream order
+    phases = PhaseTimer(dev, RECORDER.new_run_id(),
+                        (FUSE_UPLOAD, FUSE_CONTENT, FUSE_SAMPLE,
+                         FUSE_DOWNLOAD), (None, FUSE_RUN))
+    try:
+        with phases.view():
+            return _fuse(volumes, models, bbox, params, dev, out, phases)
+    finally:
+        phases.close()
+
+
+def _fuse(volumes, models, bbox: BoundingBox, params: FusionParameters,
+          dev, out: np.ndarray, phases: Optional[PhaseTimer] = None
+          ) -> np.ndarray:
+    """`fuse_views`' work into `out`, counted in `COUNTERS`; `phases`
+    (None, or the run's `PhaseTimer`) is lapped after each stage."""
+    views = _view_maps(volumes, models, bbox, params, dev, phases)
+    COUNTERS["fuse.h2d_bytes"] += sum(v.numel() * v.element_size()
+                                      for v, *_ in views)
+    n_aligned = sum(aligned for *_, aligned in views)
+    out_shape = out.shape
     zc = params.z_chunk or max(
         1, min(out_shape[0], _AUTO_CHUNK_VOXELS
                // max(1, out_shape[1] * out_shape[2])))
@@ -206,8 +271,46 @@ def fuse_views(
         z1 = min(z0 + zc, out_shape[0])
         chunk = _fuse_chunk(views, z0, (z1 - z0,) + out_shape[1:], params,
                             dev)
-        out[z0:z1] = chunk.cpu().numpy()
+        if phases is not None:
+            phases.lap(FUSE_SAMPLE)
+        torch.from_numpy(out[z0:z1]).copy_(chunk)
+        if phases is not None:
+            phases.lap(FUSE_DOWNLOAD)
+        COUNTERS["fuse.chunks"] += 1
+        COUNTERS["fuse.aligned_view_chunks"] += n_aligned
+        COUNTERS["fuse.affine_view_chunks"] += len(views) - n_aligned
+        COUNTERS["fuse.d2h_bytes"] += chunk.numel() * chunk.element_size()
     return out
+
+
+class TimelapseFusion:
+    """`fuse_views` for the timepoints of a timelapse, one after another,
+    into one host array (the CLI's `fuse`): `fusion(volumes, models,
+    bbox)` returns the fused timepoint in that array, which the next call
+    overwrites. The array is made at the first call and again only for a
+    larger box (a smaller one is a view of its first voxels), page-locked
+    where the fusion runs on a card: each chunk then goes to the host at
+    the link's rate, and no timepoint pays for faulting in the pages of a
+    new array (4 bytes a voxel)."""
+
+    def __init__(self, params: FusionParameters = FusionParameters(),
+                 device=None):
+        self.params = params
+        self.device = device
+        self._flat: Optional[np.ndarray] = None
+
+    def __call__(self, volumes: Sequence, models: Sequence,
+                 bbox: BoundingBox) -> np.ndarray:
+        dev = resolve_device(self.device)
+        shape = tuple(s // self.params.downsample for s in bbox.shape)
+        n = math.prod(shape)
+        if self._flat is None or self._flat.size < n:
+            self._flat = None           # the old array goes first
+            self._flat = torch.empty(
+                n, dtype=torch.float32,
+                pin_memory=dev.type == "cuda").numpy()
+        return fuse_views(volumes, models, bbox, self.params, dev,
+                          out=self._flat[:n].reshape(shape))
 
 
 def fuse_dataset(dataset, view_ids, bbox_name: Optional[str] = None,

@@ -13,9 +13,10 @@ and the port's spans:
   events on the clock of its device trace.
 - `PhaseTimer`: the phases of every Richardson-Lucy view update of one
   run (conv and update; halo, conv and update on each card of the
-  sharded engine's mesh), marked with CUDA events in stream order (the
-  host clock for CPU tensors) and resolved only when the recorder is
-  read; the recorder sums a phase over the cards and counts them.
+  sharded engine's mesh), or of one fusion run (upload, content, sample
+  and download), marked with CUDA events in stream order (the host clock
+  for CPU tensors) and resolved only when the recorder is read; the
+  recorder sums a phase over the cards and counts them.
 - `read_spans()` / `reset_spans()`: the recorder's totals and records.
 
 Span names carry the prefix `spim/`.
@@ -54,6 +55,13 @@ MESH_VIEW = "spim/mesh.view"
 MESH_HALO = "spim/mesh.halo"
 MESH_CONV = "spim/mesh.conv"
 MESH_UPDATE = "spim/mesh.update"
+# fusion (fuse/weighted_avg.py fuse_views), while a profiler runs: the run
+# and its four phases
+FUSE_RUN = "spim/fuse.run"
+FUSE_UPLOAD = "spim/fuse.upload"
+FUSE_CONTENT = "spim/fuse.content"
+FUSE_SAMPLE = "spim/fuse.sample"
+FUSE_DOWNLOAD = "spim/fuse.download"
 
 
 def device_fence(x: torch.Tensor) -> None:
@@ -218,7 +226,9 @@ class PhaseTimer:
     """The phases of every view update of one RL run, on each device it
     runs on: by default `conv` and `update` under the RL engine's
     iteration and view spans; the sharded engine gives its mesh's cards
-    and `halo`, `conv` and `update` under its own spans.
+    and `halo`, `conv` and `update` under its own spans. Fusion opens one
+    unit, its run span, and laps `upload`, `content`, `sample` and
+    `download` in it.
 
     `lap(phase)` closes, on every device, the interval since that
     device's last lap, in stream order, and gives it to `phase` of the
@@ -268,7 +278,7 @@ class PhaseTimer:
         self._laps = {d: {p: [] for p in self.phases} for d in self.devices}
         if not self._last:              # the laps start with the first view
             self._last = {d: self._mark(d) for d in self.devices}
-        return span(self._view)
+        return span(self._view, self.run_id)
 
     def close(self) -> None:
         self._flush()

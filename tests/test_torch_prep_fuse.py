@@ -189,7 +189,30 @@ _FUSE_CASES = {
     "content": dict(use_content_based=True, content_sigmas=(2.0, 4.0)),
     "nearest_chunked": dict(interpolation="nearest", z_chunk=7),
     "downsampled_no_blend": dict(downsample=2, use_blending=False),
+    # the maximal box's reach: past every view on every side
+    "box_past_views": dict(box=((-6, -5, -7), (46, 41, 51))),
 }
+
+
+def _ramp_sums(shapes, models, box, blend_range=15.0) -> np.ndarray:
+    """Each box voxel's summed blending weight in float64: the views'
+    cosine ramps at their float64 view coordinates."""
+    lo, hi = box
+    grid = np.stack(np.meshgrid(*[np.arange(a, b, dtype=np.float64)
+                                  for a, b in zip(lo, hi)], indexing="ij"),
+                    axis=-1)
+    total = np.zeros(grid.shape[:-1])
+    for shape, A in zip(shapes, models):
+        inv = np.linalg.inv(np.vstack([A, [0, 0, 0, 1]]))[:3]
+        c = grid @ inv[:, :3].T + inv[:, 3]
+        w = np.ones(grid.shape[:-1])
+        for k in range(3):
+            d = np.minimum(c[..., k], shape[k] - 1 - c[..., k])
+            ramp = 0.5 * (1.0 - np.cos(np.pi * np.clip(d / blend_range,
+                                                        0.0, 1.0)))
+            w *= np.where(d <= 0, 0.0, ramp)
+        total += w
+    return total
 
 
 @pytest.mark.parametrize("case", sorted(_FUSE_CASES))
@@ -197,6 +220,7 @@ _FUSE_CASES = {
 def test_fuse_views_matches_reference(scene, case, aligned):
     kw = dict(_FUSE_CASES[case])
     sig = kw.pop("content_sigmas", None)
+    lo, hi = kw.pop("box", ((2, 3, 1), (38, 33, 41)))
     if aligned:       # translation-only models take the separable path
         models = [np.concatenate([np.eye(3), [[1.5], [-2.0], [0.25]]], 1),
                   np.concatenate([np.diag([1.0, 0.9, 1.1]), [[0.0], [1.0],
@@ -207,10 +231,124 @@ def test_fuse_views_matches_reference(scene, case, aligned):
     if sig is not None:
         port_kw["content"] = ContentBasedParameters(*sig)
         ref_kw["content"] = ref_weights.ContentBasedParameters(*sig)
-    got = fuse_views(scene.volumes, models,
-                     BoundingBox("b", (2, 3, 1), (38, 33, 41)),
+    got = fuse_views(scene.volumes, models, BoundingBox("b", lo, hi),
                      FusionParameters(**port_kw), device="cpu")
-    want = ref_fuse(scene.volumes, models,
-                    RefBBox("b", (2, 3, 1), (38, 33, 41)), RefFP(**ref_kw))
+    want = ref_fuse(scene.volumes, models, RefBBox("b", lo, hi),
+                    RefFP(**ref_kw))
     assert isinstance(got, np.ndarray) and got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # ROADMAP queue 3 item 12: where a voxel's only weight is a ramp a few
+    # 1e-3 px inside a view's face (summed float64 ramp under 1e-7), f32
+    # cos rounds to 1 a little sooner in torch than in XLA and the summed
+    # weight may fall on either side of the 1e-9 cut; such voxels are
+    # named and not compared
+    split = np.zeros(got.shape, bool)
+    if case == "box_past_views":
+        ramps = _ramp_sums([v.shape for v in scene.volumes], models,
+                           (lo, hi))
+        split = (ramps > 0) & (ramps < 1e-7)
+        assert split.sum() < 1e-3 * split.size
+    np.testing.assert_allclose(got[~split], np.asarray(want)[~split], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("given", ["array", "memmap", "wrong_shape",
+                                   "wrong_dtype", "read_only"])
+def test_fuse_views_into_a_given_array(scene, given, tmp_path):
+    """`out`: every voxel written into the caller's array, which is
+    returned, bit for bit what a new array gets; an array of another
+    shape or dtype, or one that cannot be written, is refused."""
+    box = BoundingBox("b", (-6, -5, -7), (46, 41, 51))
+    params = FusionParameters(use_content_based=True, z_chunk=7,
+                              content=ContentBasedParameters(2.0, 4.0))
+    want = fuse_views(scene.volumes, scene.models, box, params, device="cpu")
+    shape = want.shape
+    if given == "memmap":
+        out = np.lib.format.open_memmap(tmp_path / "fused.npy", mode="w+",
+                                        dtype=np.float32, shape=shape)
+    else:
+        out = np.empty(shape[:-1] + (shape[-1] + (given == "wrong_shape"),),
+                       np.float64 if given == "wrong_dtype" else np.float32)
+    out.fill(np.nan)
+    if given == "read_only":
+        out.flags.writeable = False
+    if given in ("array", "memmap"):
+        got = fuse_views(scene.volumes, scene.models, box, params,
+                         device="cpu", out=out)
+        assert got is out
+        assert np.asarray(got).tobytes() == want.tobytes()
+    else:
+        with pytest.raises(ValueError, match="fusion writes float32"):
+            fuse_views(scene.volumes, scene.models, box, params,
+                       device="cpu", out=out)
+
+
+@pytest.mark.parametrize("then", ["same", "smaller", "larger", "downsample"])
+def test_timelapse_fusion_reuses_one_array(scene, then):
+    """`TimelapseFusion`: each call bit for bit what `fuse_views` gives
+    into a new array; a box of the same size or smaller is fused into the
+    first call's array, a larger one into a new array."""
+    from spim_registration_tpu_torch.fuse import TimelapseFusion
+
+    ds = 2 if then == "downsample" else 1
+    params = FusionParameters(use_content_based=True, z_chunk=7,
+                              downsample=ds,
+                              content=ContentBasedParameters(2.0, 4.0))
+    first = BoundingBox("b", (-6, -5, -7), (46, 41, 51))
+    second = {"same": first, "downsample": first,
+              "smaller": BoundingBox("b", (0, 0, 0), (30, 36, 40)),
+              "larger": BoundingBox("b", (-8, -5, -7), (46, 41, 53))}[then]
+    fuse = TimelapseFusion(params, "cpu")
+    arrays, got = [], []
+    for box in (first, second):
+        arrays.append(fuse(scene.volumes, scene.models, box))
+        got.append(arrays[-1].copy())
+    assert np.shares_memory(*arrays) == (then != "larger")
+    for box, g in zip((first, second), got):
+        want = fuse_views(scene.volumes, scene.models, box, params,
+                          device="cpu")
+        assert g.shape == want.shape and g.tobytes() == want.tobytes()
+
+
+def test_cli_fuse_fuses_every_timepoint_into_one_array(tmp_path,
+                                                        monkeypatch):
+    """The CLI's `fuse` over three timepoints: each file bit for bit what
+    `fuse_views` gives for its timepoint; the second timepoint's box is
+    larger (a view moved by 4 px in x), so it gets a new array, and the
+    third's, smaller again, is fused into that one."""
+    from spim_registration_tpu_torch import cli
+    from spim_registration_tpu_torch.core import xml_io
+    from spim_registration_tpu_torch.fuse import (
+        maximal_bounding_box,
+        weighted_avg,
+    )
+
+    root = tmp_path / "ds"
+    assert cli.main(["simulate", "--out", str(root), "--views", "2",
+                     "--timepoints", "3", "--beads", "8", "--shape", "24",
+                     "28", "32", "--seed", "3"]) == 0
+    xml = str(root / "dataset.xml")
+    ds = xml_io.load_dataset(xml)
+    ds.views[(1, 1)].set_transform(
+        "shift", np.concatenate([np.eye(3), [[0.0], [0.0], [4.0]]], 1))
+    xml_io.save_dataset(ds, xml)
+    outs = []
+    real = weighted_avg.fuse_views
+
+    def spy(*a, **k):
+        outs.append(k["out"])
+        return real(*a, **k)
+    monkeypatch.setattr(weighted_avg, "fuse_views", spy)
+    assert cli.main(["fuse", xml, "--out", str(tmp_path / "f{tp}.npy"),
+                     "--device", "cpu"]) == 0
+    assert [o.shape for o in outs] == [(24, 28, 32), (24, 28, 36),
+                                       (24, 28, 32)]
+    assert not np.shares_memory(outs[0], outs[1])
+    assert np.shares_memory(outs[1], outs[2])
+    ds = xml_io.load_dataset(xml)
+    for tp in range(3):
+        vols = [np.load(root / f"tp{tp}_setup{s}.npy") for s in range(2)]
+        models = [ds.views[(tp, s)].model() for s in range(2)]
+        want = real(vols, models, maximal_bounding_box(
+            [v.shape for v in vols], models), FusionParameters(),
+            device="cpu")
+        assert np.load(tmp_path / f"f{tp}.npy").tobytes() == want.tobytes()

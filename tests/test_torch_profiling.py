@@ -253,3 +253,94 @@ def test_stage_timer_is_a_span_and_keeps_its_log_line(caplog):
     assert t["count"] == 2
     assert timings["detect"] == pytest.approx(t["host_s"])
     assert [m for m in caplog.messages if m.startswith("detect: ")]
+
+
+# ------------------------------------------------------------------ fusion
+
+FUSE_PHASES = (pf.FUSE_UPLOAD, pf.FUSE_CONTENT, pf.FUSE_SAMPLE,
+               pf.FUSE_DOWNLOAD)
+
+
+def _fuse_case(content: bool):
+    """Three random views (the second axis-aligned), a box past them, and
+    parameters whose z chunk splits the box into 4 chunks."""
+    import numpy as np
+
+    from spim_registration_tpu_torch.core.dataset import BoundingBox
+    from spim_registration_tpu_torch.fuse import (
+        ContentBasedParameters,
+        FusionParameters,
+    )
+
+    rng = np.random.default_rng(4)
+    views = [rng.random((10, 12, 14), dtype=np.float32) for _ in range(3)]
+    c, s = np.cos(0.3), np.sin(0.3)
+    turned = np.array([[c, 0, s, 1.0], [0, 1, 0, -0.5], [-s, 0, c, 2.0]])
+    shifted = np.concatenate([np.eye(3), [[1.5], [-1.0], [0.5]]], 1)
+    models = [turned, shifted, turned + [[0, 0, 0, 0.7]] * 3]
+    box = BoundingBox("b", (-2, -3, -1), (13, 11, 17))      # 15 planes
+    params = FusionParameters(use_content_based=content, z_chunk=4,
+                              content=ContentBasedParameters(2.0, 3.0))
+    return views, models, box, params
+
+
+@pytest.mark.parametrize("content", [False, True],
+                         ids=["blending", "content"])
+def test_fusion_spans_phases_and_counters(content, monkeypatch):
+    """Without a profiler `fuse_views` opens no range and takes no lap;
+    under one it is one `spim/fuse.run` range holding its four phases
+    (an upload and a content weight a view, a sample and a download a
+    chunk), and its output is bit for bit the untraced one. Its counters
+    count every call: 4 chunks of 15 planes at 4, each with one aligned
+    and two affine views, the views' bytes in and the box's out."""
+    from spim_registration_tpu_torch.fuse import weighted_avg
+
+    views, models, box, params = _fuse_case(content)
+    opened, laps = [], []
+    real_lap = pf.PhaseTimer.lap
+    monkeypatch.setattr(pf.PhaseTimer, "lap",
+                        lambda self, phase: (laps.append(phase),
+                                             real_lap(self, phase))[1])
+    real_open = pf._open_range
+    monkeypatch.setattr(pf, "_open_range", lambda name: (
+        opened.append(name), real_open(name))[1])
+    monkeypatch.setattr(weighted_avg, "COUNTERS",
+                        dict.fromkeys(weighted_avg.COUNTERS, 0))
+    pf.reset_spans()
+    plain = weighted_avg.fuse_views(views, models, box, params,
+                                    device="cpu")
+    assert opened == [] and laps == []
+    assert not [n for n in pf.read_spans()["totals"]
+                if n.startswith("spim/fuse.")]
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(RUNS):
+            traced = weighted_avg.fuse_views(views, models, box, params,
+                                             device="cpu")
+    assert traced.tobytes() == plain.tobytes()
+    runs = [e for e in prof.events() if e.name == pf.FUSE_RUN]
+    assert len(runs) == RUNS and not any(e.is_user_annotation for e in runs)
+    chunks = 4
+    per_run = ([pf.FUSE_UPLOAD] + [pf.FUSE_CONTENT] * content) * 3 \
+        + [pf.FUSE_SAMPLE, pf.FUSE_DOWNLOAD] * chunks
+    assert laps == per_run * RUNS
+    spans = pf.read_spans()
+    t = spans["totals"]
+    assert t[pf.FUSE_RUN]["count"] == RUNS
+    for phase in FUSE_PHASES:
+        if phase == pf.FUSE_CONTENT and not content:
+            assert phase not in t
+            continue
+        assert t[phase]["count"] == RUNS and t[phase]["host_s"] > 0
+    recs = [r for r in spans["records"] if r.name.startswith("spim/fuse.")]
+    ids = {r.run_id for r in recs if r.name == pf.FUSE_RUN}
+    assert len(ids) == RUNS and None not in ids
+    assert all(r.parent == pf.FUSE_RUN and r.run_id in ids
+               for r in recs if r.name in FUSE_PHASES)
+
+    assert weighted_avg.COUNTERS == {
+        "fuse.chunks": chunks * (1 + RUNS),
+        "fuse.aligned_view_chunks": chunks * (1 + RUNS),
+        "fuse.affine_view_chunks": 2 * chunks * (1 + RUNS),
+        "fuse.h2d_bytes": 3 * 4 * 10 * 12 * 14 * (1 + RUNS),
+        "fuse.d2h_bytes": 4 * 15 * 14 * 18 * (1 + RUNS)}
